@@ -1,0 +1,606 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py     # the whole check, about 2-3 minutes
+
+Phases, each of which raises on failure:
+  1. card:   a CUDA card must be present; prints its name and power limit;
+  2. build:  compiles the port's CUDA kernels from csrc/ (nvcc, sm_90a);
+  3. kernels: each kernel against its plain PyTorch version at the shapes of
+     the 752x480 / 1024-feature main path, with ties, gated rows and -inf
+     padding (exact equality). Timed as device time (torch.profiler, the
+     "ms" of the JSON record) and with CUDA events around the host's calls
+     (launch gaps included), beside the plain version, a PyTorch library
+     call where one computes the same function, and the least time the
+     card could take (its bound);
+  4. main path: seeds a map from ground truth (EuRoC-sized pinhole camera,
+     OrbConfig() and MapConfig() defaults), then drives Tracker.
+     track_monocular over the trajectory, checks that every kernel of the
+     path launched as often as the frames require, gates the poses against
+     the ground truth, counts the host syncs of 3 frames, profiles 5 more
+     (torch.profiler: device time and kernels per frame, and for
+     prepare_frame and pose_optimization alone; table in
+     chiprun_out/profile_frames.txt), re-runs two frames on the CPU and
+     compares.
+
+Output: per-phase lines, then on lines of their own the kernels' JSON
+record, the card's name and power limit (nvidia-smi's csv), and last
+{"ok": true, "device": {...}}. Exits non-zero with no result line when
+there is no CUDA card or the port's package is not beside this script.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+PKG = "orb_slam3_detailed_comments_tpu_torch"
+
+# the H100 SXM's published peaks (NVIDIA H100 datasheet)
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12       # float32 outside the tensor cores
+# issue rates per SM per clock on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 32-bit integer
+# add, logical and compare operations, and __popc
+INT32_PER_SM_CLK = 64
+POPC_PER_SM_CLK = 16
+
+# main-path configuration (EuRoC-sized, bench.py's camera and world)
+CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752, height=480)
+N_TRAJ = 80          # orbit frames; keyframes every KF_EVERY-th frame
+KF_EVERY = 2
+N_TRACK = 64         # tracked frames, 1 .. N_TRACK, all inside the seeded span
+CPU_FRAMES = (20, 21)
+PROBE_FROM = 40      # sync count (3 frames) and profile (5) from here on
+GATES = dict(tracked=0.95, median_m=0.01, max_m=0.05, cpu_match=0.99,
+             cpu_pose=1e-3)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps=30, warm=3):
+    """Median milliseconds of fn() on the card, from CUDA events."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps=20, warm=3):
+    """Milliseconds of device time per fn() call: the durations of the
+    kernels it launched, from torch.profiler, without the host's launch
+    gaps that CUDA events around a host-bound call also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no kernel of a timed call")
+    return total_us / 1e3 / reps
+
+
+def timed(rec, kernel, plain, library=None, plain_reps=20):
+    """Device time (ms, plain_ms, library_ms) and CUDA-event time
+    (event_ms, plain_event_ms) of one frame's calls."""
+    rec.update(ms=device_ms(kernel), event_ms=cuda_ms(kernel),
+               plain_ms=device_ms(plain, reps=plain_reps),
+               plain_event_ms=cuda_ms(plain, reps=plain_reps),
+               library_ms=None if library is None else device_ms(library))
+    return rec
+
+
+def int_rates():
+    """The card's 32-bit integer and __popc rates (operations per second):
+    its SM count times its maximum SM clock times the per-SM issue rates."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    sm_hz = float(smi.stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(sms=sms, sm_clock_hz=sm_hz,
+                int32_ops_per_s=sms * sm_hz * INT32_PER_SM_CLK,
+                popc_per_s=sms * sm_hz * POPC_PER_SM_CLK)
+
+
+def bound_ms(n_bytes, n_ops=0, n_int=0, n_popc=0, rates=None):
+    """The least time of the work: the larger of its bytes over the memory
+    rate and of each kind of operation over its own rate (float32 n_ops on
+    the CUDA cores; n_int 32-bit integer operations and n_popc popcounts at
+    the card's rates from int_rates())."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    if n_int or n_popc:
+        t_o = max(t_o, n_int / rates["int32_ops_per_s"] * 1e3,
+                  n_popc / rates["popc_per_s"] * 1e3)
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# ---------------------------------------------------------------- phase 3
+def kernel_phase(dev, rates):
+    """Every kernel against its plain version at the main path's shapes,
+    and the best-2 searches also at a shape that is no multiple of 128."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import (
+        extractor, hamming, patches, pyramid, topk)
+    rng = np.random.default_rng(0)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    H, W = CAM_KW["height"], CAM_KW["width"]
+    orb = extractor.OrbConfig()
+    shapes = pyramid.level_shapes(H, W, orb.n_levels, orb.scale)
+    n_feat = orb.n_features
+    rec = []
+
+    def same(name, got, ref):
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, r in zip(got, ref):
+            if g.shape != r.shape or not torch.equal(g, r):
+                raise AssertionError(f"{name}: kernel differs from its plain "
+                                     f"version")
+            err = max(err, float((g.double() - r.double()).abs().max()))
+        return err
+
+    # 1. cell_topk: one [C_l, 1024] call per pyramid level
+    cells = []
+    for lh, lw in shapes:
+        C = ((lh + 31) // 32) * ((lw + 31) // 32)
+        x = np.where(rng.uniform(size=(C, 1024)) < 0.08,
+                     rng.integers(7, 100, (C, 1024)), 0).astype(np.float32)
+        x[0, :] = 0.0                                   # all-zero cell
+        x[1, [5, 900]] = 42.0                           # tie
+        x[2, :] = -np.inf                               # padding row
+        x[3, :] = -np.inf
+        x[3, [9, 600]] = 8.0                            # < k finite values
+        cells.append(f(x))
+    k = orb.k_per_cell
+    err = max(same("cell_topk", topk.cell_topk(c, k), topk.cell_topk_plain(c, k))
+              for c in cells)
+    n_rows = sum(c.shape[0] for c in cells)
+    b, by = bound_ms(n_rows * 1024 * 4 + n_rows * k * 8, n_rows * 1024 * k)
+    rec.append(timed(dict(
+        name="cell_topk", route="cuda", source=f"{PKG}/csrc/topk.cu",
+        replaces="orb_slam3_detailed_comments_tpu/ops/pallas_topk.py:36",
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        unit=f"one frame: 8 calls, {n_rows} rows x 1024"),
+        lambda: [topk.cell_topk(c, k) for c in cells],
+        lambda: [topk.cell_topk_plain(c, k) for c in cells],
+        lambda: [torch.topk(c, k, dim=1) for c in cells]))
+
+    # 2. gather_patches: 31x31 raw and 37x37 blurred patches of 1024 features
+    levels = [f(rng.uniform(0, 255, s).astype(np.float32)) for s in shapes]
+    atlas, offs = patches.build_atlas(levels, W)
+    budgets = extractor.level_budgets(orb)
+    calls = []
+    for ph in (31, 37):
+        rc = np.concatenate([np.stack(
+            [rng.integers(0, s[0] - ph, n) + o, rng.integers(0, s[1] - ph, n)], 1)
+            for s, o, n in zip(shapes, offs, budgets)]).astype(np.int32)
+        rc[:2] = [[-4, -9], [atlas.shape[0] - 2, atlas.shape[1] - 1]]
+        calls.append((f(rc), ph))
+    err = max(same("gather_patches", [patches.gather_patches(atlas, rc, ph)],
+                   [patches.gather_patches_plain(atlas, rc, ph)])
+              for rc, ph in calls)
+    nbytes = sum(rc.numel() * 4 + 2 * rc.shape[0] * ph * ph * 4
+                 for rc, ph in calls)
+    b, by = bound_ms(nbytes, 0)
+    rec.append(timed(dict(
+        name="gather_patches", route="cuda", source=f"{PKG}/csrc/patches.cu",
+        replaces="orb_slam3_detailed_comments_tpu/ops/pallas_patches.py:50",
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        unit=f"one frame: 2 calls, {n_feat} patches of 31x31 and 37x37 "
+             f"from a {tuple(atlas.shape)} atlas"),
+        lambda: [patches.gather_patches(atlas, rc, ph) for rc, ph in calls],
+        lambda: [patches.gather_patches_plain(atlas, rc, ph)
+                 for rc, ph in calls]))
+
+    # 3. hamming_best2_windowed: stage 1 (Q=1024) and stage 2 (Q=4096)
+    sf = 1.2 ** np.arange(8)
+    t_xy = rng.uniform([0, 0], [W, H], (n_feat, 2)).astype(np.float32)
+    t_lv = rng.integers(0, 8, n_feat).astype(np.int32)
+    db = rng.integers(0, 2 ** 32, (n_feat, 8), dtype=np.uint64).astype(np.uint32)
+    tv = rng.uniform(size=n_feat) < 0.98
+    def windowed_args(Q, rad, K=n_feat):
+        """Stage-like queries near the targets; returns (args, pairs that
+        pass the gates)."""
+        src = rng.integers(0, K, Q)
+        q_uv = (t_xy[src] + rng.normal(0, 2.0, (Q, 2))).astype(np.float32)
+        q_lv = np.clip(t_lv[src] + rng.integers(-1, 2, Q), 0, 7).astype(np.int32)
+        da = db[src] ^ (rng.uniform(size=(Q, 8)) < 0.05).astype(np.uint32)
+        qv = rng.uniform(size=Q) < 0.9
+        q_r = (rad * sf[q_lv]).astype(np.float32)
+        q_r[1] = 0.0                                     # all-gated row
+        args = (f(da.view(np.int32)), f(q_uv), f(q_lv), f(q_r),
+                f(np.full(Q, -1, np.int32)), f(np.ones(Q, np.int32)), f(qv),
+                f(db[:K].view(np.int32)), f(t_xy[:K]), f(t_lv[:K]), f(tv[:K]))
+        du = np.abs(q_uv[:, None, 0] - t_xy[None, :K, 0])
+        dv = np.abs(q_uv[:, None, 1] - t_xy[None, :K, 1])
+        dl = t_lv[None, :K] - q_lv[:, None]
+        return args, int(((du <= q_r[:, None]) & (dv <= q_r[:, None])
+                          & (dl >= -1) & (dl <= 1) & tv[None, :K]
+                          & qv[:, None]).sum())
+
+    wcalls, n_pass = [], 0
+    for Q, rad in ((n_feat, 15.0), (4096, 4.0)):
+        args, n = windowed_args(Q, rad)
+        wcalls.append(args)
+        n_pass += n
+    odd = windowed_args(1000, 15.0, K=1000)[0]           # no 128-multiple
+    err = max(same("hamming_best2_windowed",
+                   hamming.hamming_best2_windowed(*a),
+                   hamming.hamming_best2_windowed_plain(*a))
+              for a in wcalls + [odd])
+    n_pairs = sum(a[0].shape[0] * n_feat for a in wcalls)
+    nbytes = sum(a[0].shape[0] * (32 + 8 + 4 * 4 + 1 + 12) for a in wcalls) \
+        + 2 * n_feat * (32 + 8 + 4 + 1)
+    # 8 gate operations per pair; per pair that passes, 8 XOR + 8 ADD and 2
+    # best-2 compares (integer rate) and 8 __popc (popcount rate)
+    b, by = bound_ms(nbytes, n_int=8 * n_pairs + 18 * n_pass,
+                     n_popc=8 * n_pass, rates=rates)
+    rec.append(timed(dict(
+        name="hamming_best2_windowed", route="cuda",
+        source=f"{PKG}/csrc/hamming.cu",
+        replaces="orb_slam3_detailed_comments_tpu/ops/pallas_hamming.py:133",
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        unit="one frame: 2 calls, 1024x1024 and 4096x1024"),
+        lambda: [hamming.hamming_best2_windowed(*a) for a in wcalls],
+        lambda: [hamming.hamming_best2_windowed_plain(*a) for a in wcalls],
+        plain_reps=5))
+
+    # 4. hamming_best2 (match_nn's unmasked branch): 1024 x 1024
+    da = db[rng.permutation(n_feat)] ^ (
+        rng.uniform(size=(n_feat, 8)) < 0.05).astype(np.uint32)
+    da[0] = db[3]
+    db2 = db.copy()
+    db2[8] = db[3]                                       # tie
+    args = (f(da.view(np.int32)), f(db2.view(np.int32)), f(tv))
+    err = same("hamming_best2", hamming.hamming_best2(*args),
+               hamming.hamming_best2_plain(*args))
+    err = max(err, same("hamming_best2 (all masked)",
+                        hamming.hamming_best2(args[0], args[1],
+                                              torch.zeros_like(args[2])),
+                        hamming.hamming_best2_plain(args[0], args[1],
+                                                    torch.zeros_like(args[2]))))
+    odd = (args[0][:1000], args[1][:1000], args[2][:1000])
+    err = max(err, same("hamming_best2 (1000 x 1000)",
+                        hamming.hamming_best2(*odd),
+                        hamming.hamming_best2_plain(*odd)))
+    n_pass = n_feat * int(tv.sum())
+    b, by = bound_ms(n_feat * 32 * 2 + n_feat + 3 * n_feat * 4,
+                     n_int=18 * n_pass, n_popc=8 * n_pass, rates=rates)
+    rec.append(timed(dict(
+        name="hamming_best2", route="cuda", source=f"{PKG}/csrc/hamming.cu",
+        replaces="orb_slam3_detailed_comments_tpu/ops/pallas_hamming.py:52",
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        unit="one call, 1024x1024 (not on the steady path)"),
+        lambda: hamming.hamming_best2(*args),
+        lambda: hamming.hamming_best2_plain(*args), plain_reps=5))
+    for r in rec:
+        log(f"kernel {r['name']}: equal to plain; device {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.5f} by {r['bound_by']}); CUDA events "
+            f"{r['event_ms']:.4f} ms (plain {r['plain_event_ms']:.4f}) per "
+            f"{r['unit']}")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 4
+def _restore(tracking, cam, m, track_cfg, orb_cfg, dev, snap):
+    """A tracker on map m, in the state another tracker had at a snapshot."""
+    tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
+    for key, val in snap.items():
+        setattr(tk, key, val)
+    return tk
+
+
+def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
+              n_track=N_TRACK, map_cfg=None, orb_cfg=None, track_cfg=None,
+              cpu_frames=CPU_FRAMES, probe_from=PROBE_FROM):
+    """Seed a map, track frames through Tracker.track_monocular, check the
+    launch counts and the poses, re-run cpu_frames on the CPU, and on the
+    card count the host syncs of 3 frames and profile 5, from probe_from
+    on, with a tracker restored to its state there."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.lie import SE3
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig, MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import tracking
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+
+    cam = cameras.pinhole(**cam_kw)
+    map_cfg = map_cfg or MapConfig()
+    orb_cfg = orb_cfg or OrbConfig()
+    track_cfg = track_cfg or tracking.TrackingConfig(local_pts_cap=4096)
+    planes = sr.default_world(np.random.default_rng(3))
+    R, t = sr.orbit_trajectory(n_traj)
+    t0 = time.perf_counter()
+    m = sr.seed_map(cam, planes, R, t, kf_every, map_cfg, dev, orb_cfg)
+    seed_s = time.perf_counter() - t0
+    cov = m.covisibility_matrix()
+    log(f"seeded map: {m.n_kf} keyframes (one every {kf_every} of {n_traj} "
+        f"frames), {m.n_points} points, {int((cov >= 15).sum())} covisibility "
+        f"pairs >= 15, in {seed_s:.1f} s")
+    frames = list(range(1, n_track + 1))
+    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+            for i in frames}
+    C = sr.camera_centers(R, t)
+
+    tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
+    tk.start_from_map(SE3(R[0], t[0]), 0.0, last_kf_id=int(m.kf_ids()[0]))
+    snaps = {}
+    errs, times, cands, out = [], [], [], {}
+    native.reset_launches()                 # the main path's run starts here
+    for i in frames:
+        if i in (cpu_frames[0], probe_from):
+            snaps[i] = dict(last=tk.last, velocity=tk.velocity,
+                            ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
+                            state=tk.state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T = tk.track_monocular(imgs[i], 0.05 * i)
+        times.append(time.perf_counter() - t0)
+        cands.append(tk.n_candidates2)
+        if T is not None:
+            errs.append(float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] - C[i])))
+            out[i] = (T, tk.cur_match.copy())
+    launches = dict(native.launches)        # ... and ends here
+    n = len(frames)
+    log(f"stage-2 candidates per frame (ids2 >= 0): {cands}")
+    log(f"tracked {len(errs)}/{n} frames; centre error median "
+        f"{np.median(errs):.5f} m, max {np.max(errs):.5f} m")
+    expect = dict(cell_topk=orb_cfg.n_levels * n, gather_patches=2 * n,
+                  hamming_best2_windowed=2 * tk.n_steps)
+    log(f"launches in the main path: {launches} (expected {expect}; "
+        f"cell_topk launches once per pyramid level)")
+    if dev.type == "cuda":
+        for name, want in expect.items():
+            if launches[name] != want or want == 0:
+                raise AssertionError(f"{name}: {launches[name]} launches, "
+                                     f"expected {want}")
+    if len(errs) < GATES["tracked"] * n:
+        raise AssertionError(f"tracked {len(errs)} of {n} frames")
+    if np.median(errs) >= GATES["median_m"] or np.max(errs) >= GATES["max_m"]:
+        raise AssertionError(f"pose error median {np.median(errs):.4f} m / "
+                             f"max {np.max(errs):.4f} m over the gates")
+    ms = np.array(times[1:]) * 1e3          # frame 1 warms the allocator
+    log(f"frame time (host clock, image upload to pose): median "
+        f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms over "
+        f"{len(ms)} frames")
+
+    syncs = prof = None
+    if dev.type == "cuda":
+        probe = frames[frames.index(probe_from):][:8]
+        tkp = _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
+                       snaps[probe_from])
+        syncs = count_syncs(tkp, imgs, probe[:3])
+        prof = profile_frames(tkp, imgs, probe[3:8])
+        # the device's busy share of a frame: its kernel time (profiled)
+        # over the frame's unprofiled host-clock time
+        prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
+        log(f"device busy share of a frame: {prof['busy_share']:.3f}")
+
+    # the same two frames on the CPU, from the same map and tracker state
+    cpu = torch.device("cpu")
+    m_cpu = MapStore.from_numpy(m.to_numpy(), map_cfg, device=cpu)
+    tkc = _restore(tracking, cam, m_cpu, track_cfg, orb_cfg, cpu,
+                   snaps[cpu_frames[0]])
+    worst_match, worst_pose = 1.0, 0.0
+    for i in cpu_frames:
+        Tc = tkc.track_monocular(imgs[i], 0.05 * i)
+        if Tc is None or i not in out:
+            raise AssertionError(f"frame {i} not tracked on both devices")
+        Tg, mg = out[i]
+        agree = float((tkc.cur_match == mg).mean())
+        dpose = float(np.abs(Tc - Tg).max())
+        worst_match, worst_pose = min(worst_match, agree), max(worst_pose,
+                                                               dpose)
+    log(f"CPU re-run of frames {cpu_frames}: match_pt agreement "
+        f"{worst_match:.4f}, pose difference {worst_pose:.2e}")
+    if worst_match < GATES["cpu_match"] or worst_pose > GATES["cpu_pose"]:
+        raise AssertionError("card and CPU disagree")
+    return dict(launches=launches, frame_ms_median=float(np.median(ms)),
+                frame_ms_p90=float(np.percentile(ms, 90)), syncs=syncs,
+                profile=prof)
+
+
+def count_syncs(tk, imgs, frames):
+    """Synchronizing CUDA calls per frame, as PyTorch's sync debug mode
+    reports them, each placed at the innermost line of the port on the
+    Python stack."""
+    import collections
+    import traceback
+    import torch
+    sites = collections.Counter()
+
+    def record(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        frames_in_port = [f for f in traceback.extract_stack()
+                          if f"{PKG}/" in f.filename]
+        f = frames_in_port[-1] if frames_in_port else None
+        sites[f"{f.filename.split(PKG + '/')[-1]}:{f.lineno}" if f
+              else "outside the port"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in frames:
+                tk.track_monocular(imgs[i], 0.05 * i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n = sum(sites.values()) / len(frames)
+    log(f"host syncs per frame: {n:.2f} (sync debug mode, frames {frames}); "
+        f"by site: {dict(sites.most_common())}")
+    return n
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock milliseconds of fn() ending in a synchronize."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_frames(tk, imgs, frames):
+    """torch.profiler over tracked frames: device time (sum of kernel
+    durations) and kernels per frame; the table by kernel goes to
+    chiprun_out/profile_frames.txt. The first prepare_frame and
+    pose_optimization call of the window are captured and re-run alone for
+    their device time (kernels and ms) and host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+
+    stages = {"prepare_frame": kernels, "pose_optimization": kernels.pose_opt}
+    saved = {name: getattr(mod, name) for name, mod in stages.items()}
+    calls = {}
+
+    def capture(name):
+        def run(*a, **kw):
+            calls.setdefault(name, (a, kw))
+            return saved[name](*a, **kw)
+        return run
+
+    torch.cuda.synchronize()
+    try:
+        for name, mod in stages.items():
+            setattr(mod, name, capture(name))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in frames:
+                tk.track_monocular(imgs[i], 0.05 * i)
+            torch.cuda.synchronize()
+    finally:
+        for name, mod in stages.items():
+            setattr(mod, name, saved[name])
+    avg = prof.key_averages()
+    n = len(frames)
+    dev = [e for e in avg if e.device_type == DeviceType.CUDA]
+    out = dict(device_ms=sum(e.self_device_time_total for e in dev) / 1e3 / n,
+               kernels=sum(e.count for e in dev) / n)
+    table = avg.table(sort_by="self_device_time_total", row_limit=100)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_frames.txt").write_text(table)
+    log(f"profile of frames {frames}, per frame: device time "
+        f"{out['device_ms']:.2f} ms in {out['kernels']:.0f} kernels; table "
+        f"in chiprun_out/profile_frames.txt")
+    log("\n".join(table.splitlines()[:12]))
+    for name, (a, kw) in calls.items():
+        fn = lambda: saved[name](*a, **kw)
+        with profile(activities=[ProfilerActivity.CUDA]) as p1:
+            fn()
+            torch.cuda.synchronize()
+        k1 = sum(e.count for e in p1.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        out[name] = dict(device_ms=device_ms(fn, reps=5), kernels=k1,
+                         host_ms=host_ms(fn))
+        log(f"  {name}, one call alone: device {out[name]['device_ms']:.2f} "
+            f"ms in {k1} kernels, host clock {out[name]['host_ms']:.2f} ms")
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (REPO / PKG / "csrc").is_dir():
+        print(f"chip_smoke: {PKG}/ must sit beside this script",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(REPO))
+    # exact-integer matmuls (pyramid resize of integer images) need full
+    # float32: keep TF32 off for matmuls and cuDNN alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"phase 1 card: {torch.cuda.get_device_name(0)} | {card} | torch "
+        f"{torch.__version__} CUDA {torch.version.cuda}")
+
+    from orb_slam3_detailed_comments_tpu_torch import native
+    t0 = time.perf_counter()
+    native.build(force=True)
+    native.lib()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, one process per source)")
+    for line in native.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+
+    log("phase 3 kernels against their plain versions")
+    rates = int_rates()
+    log(f"  bounds: HBM {HBM_BYTES_PER_S:.3e} B/s, float32 "
+        f"{CUDA_CORE_OPS_PER_S:.3e} op/s; {rates['sms']} SMs at "
+        f"{rates['sm_clock_hz'] / 1e6:.0f} MHz: int32 "
+        f"{rates['int32_ops_per_s']:.3e} op/s ({INT32_PER_SM_CLK}/SM/clock), "
+        f"__popc {rates['popc_per_s']:.3e} op/s ({POPC_PER_SM_CLK}/SM/clock)")
+    rec = kernel_phase(dev, rates)
+
+    log("phase 4 main path")
+    res = main_path(dev)
+    for r in rec:
+        r["launches"] = res["launches"][r["name"]]
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "event_ms", "plain_event_ms")
+    summary = dict(frame_ms_median=res["frame_ms_median"],
+                   frame_ms_p90=res["frame_ms_p90"],
+                   host_syncs_per_frame=res["syncs"], **res["profile"])
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rec],
+                    "frame": summary, "bound_rates": rates}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,333 @@
+"""Tensor map store: the SLAM map as fixed-capacity SoA arrays.
+
+Counterpart of ``mapping/mapstore.py`` of the JAX package, the subset that
+tracking reads (reference: src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc).
+Host bookkeeping runs on numpy arrays; ``device_points`` and
+``device_kf_obs`` return tensors on the map's device, cached per
+``version``. Inertial fields and the native host library wait for later
+slices: every derived structure here is computed by the numpy paths.
+
+Descriptor arrays (``kf_feat_desc``, ``pt_desc``) hold the 256 bits as int32
+words; ``from_numpy`` / ``to_numpy`` convert the JAX package's uint32
+arrays without changing a bit.
+
+Observation structure: ``kf_feat_point[k, i]`` = map-point id observed by
+feature i of keyframe k (or -1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+
+NO_POINT = -1
+
+
+def pack_point_bits(fp_rows: np.ndarray, max_pt: int) -> np.ndarray:
+    """[R, N] feature->point rows -> [R, max_pt/32] int32 membership bitsets
+    (bit p & 31 of word p >> 5 set iff point p is observed by the row)."""
+    R, _ = fp_rows.shape
+    bits = np.zeros((R, max_pt // 32), np.uint32)
+    r, c = np.nonzero((fp_rows >= 0) & (fp_rows < max_pt))
+    p = fp_rows[r, c]
+    np.bitwise_or.at(bits, (r, p >> 5),
+                     (np.uint32(1) << (p & 31).astype(np.uint32)))
+    return bits.view(np.int32)
+
+
+@dataclass
+class MapConfig:
+    max_kf: int = 256
+    max_pt: int = 16384
+    n_feat: int = 1024        # per-KF feature capacity (extractor budget)
+    n_levels: int = 8
+    scale: float = 1.2
+
+    def __post_init__(self):
+        # the point bitsets need a whole number of 32-bit words
+        self.max_pt = (self.max_pt + 31) & ~31
+
+
+# SoA arrays that tracking reads, with their per-row trailing shape and type
+_KF_ARRAYS = {
+    "kf_R": ((3, 3), np.float32), "kf_t": ((3,), np.float32),
+    "kf_valid": ((), bool), "kf_ts": ((), np.float64),
+    "kf_frame_id": ((), np.int64), "kf_prev": ((), np.int32),
+}
+_KF_FEAT_ARRAYS = {
+    "kf_feat_xy": ((2,), np.float32), "kf_feat_xyn": ((2,), np.float32),
+    "kf_feat_level": ((), np.int32), "kf_feat_angle": ((), np.float32),
+    "kf_feat_desc": ((8,), np.int32), "kf_feat_valid": ((), bool),
+    "kf_feat_point": ((), np.int32),
+}
+_PT_ARRAYS = {
+    "pt_xyz": ((3,), np.float32), "pt_valid": ((), bool),
+    "pt_desc": ((8,), np.int32), "pt_normal": ((3,), np.float32),
+    "pt_min_dist": ((), np.float32), "pt_max_dist": ((), np.float32),
+    "pt_ref_kf": ((), np.int32), "pt_first_kf": ((), np.int32),
+    "pt_found": ((), np.int32), "pt_visible": ((), np.int32),
+    "pt_replaced_by": ((), np.int32),
+}
+_DESC_ARRAYS = ("kf_feat_desc", "pt_desc")
+
+
+class MapStore:
+    """One map: host numpy SoA arrays plus per-version device caches."""
+
+    def __init__(self, cfg: MapConfig, device=None):
+        self.cfg = cfg
+        self.device = device_mod.resolve(device)
+        K, P, N = cfg.max_kf, cfg.max_pt, cfg.n_feat
+        self.kf_R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+        self.kf_t = np.zeros((K, 3), np.float32)
+        self.kf_valid = np.zeros(K, bool)
+        self.kf_ts = np.zeros(K, np.float64)
+        self.kf_frame_id = np.full(K, -1, np.int64)
+        self.kf_prev = np.full(K, -1, np.int32)
+        self.kf_feat_xy = np.zeros((K, N, 2), np.float32)    # undistorted px
+        self.kf_feat_xyn = np.zeros((K, N, 2), np.float32)   # normalized
+        self.kf_feat_level = np.zeros((K, N), np.int32)
+        self.kf_feat_angle = np.zeros((K, N), np.float32)
+        self.kf_feat_desc = np.zeros((K, N, 8), np.int32)
+        self.kf_feat_valid = np.zeros((K, N), bool)
+        self.kf_feat_point = np.full((K, N), NO_POINT, np.int32)
+        self.pt_xyz = np.zeros((P, 3), np.float32)
+        self.pt_valid = np.zeros(P, bool)
+        self.pt_desc = np.zeros((P, 8), np.int32)
+        self.pt_normal = np.zeros((P, 3), np.float32)
+        self.pt_min_dist = np.zeros(P, np.float32)
+        self.pt_max_dist = np.zeros(P, np.float32)
+        self.pt_ref_kf = np.full(P, -1, np.int32)
+        self.pt_first_kf = np.full(P, -1, np.int32)
+        self.pt_found = np.zeros(P, np.int32)     # matched-in-tracking count
+        self.pt_visible = np.zeros(P, np.int32)   # predicted-visible count
+        self.pt_replaced_by = np.full(P, -1, np.int32)
+        self.version = 0
+        self._scale_factors = cfg.scale ** np.arange(cfg.n_levels)
+
+    # ---- exchange with the JAX package's map ------------------------------
+
+    @classmethod
+    def from_numpy(cls, arrays: dict, cfg: MapConfig, device=None
+                   ) -> "MapStore":
+        """The port's map from SoA arrays by attribute name (for a JAX
+        ``MapStore`` m: ``vars(m)``). Arrays the port does not hold are
+        ignored; uint32 descriptor words become int32 with the same bits."""
+        m = cls(cfg, device)
+        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+            if name not in arrays:
+                continue
+            a = np.asarray(arrays[name])
+            mine = getattr(m, name)
+            if a.shape != mine.shape:
+                raise ValueError(f"{name}: shape {a.shape} does not match "
+                                 f"the config's {mine.shape}")
+            if name in _DESC_ARRAYS:
+                a = np.ascontiguousarray(a).view(np.int32)
+            setattr(m, name, a.astype(mine.dtype, copy=True))
+        m.version = int(arrays.get("version", 0)) + 1
+        return m
+
+    def to_numpy(self) -> dict:
+        """SoA arrays by attribute name, descriptors as uint32 words (the
+        JAX package's types): ``setattr`` them onto a JAX ``MapStore``."""
+        out = {}
+        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+            a = getattr(self, name).copy()
+            out[name] = a.view(np.uint32) if name in _DESC_ARRAYS else a
+        return out
+
+    # ---- allocation --------------------------------------------------------
+
+    def alloc_kf(self) -> int:
+        free = np.where(~self.kf_valid)[0]
+        if len(free) == 0:
+            raise RuntimeError("keyframe capacity exhausted")
+        return int(free[0])
+
+    def alloc_points(self, n: int) -> np.ndarray:
+        free = np.where(~self.pt_valid)[0]
+        if len(free) < n:
+            raise RuntimeError(f"point capacity exhausted ({n} > {len(free)})")
+        return free[:n]
+
+    @property
+    def n_kf(self) -> int:
+        return int(self.kf_valid.sum())
+
+    @property
+    def n_points(self) -> int:
+        return int(self.pt_valid.sum())
+
+    def kf_ids(self) -> np.ndarray:
+        return np.where(self.kf_valid)[0]
+
+    # ---- device-resident view ----------------------------------------------
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def device_points(self) -> dict:
+        """Device copies of the point arrays (xyz, desc, normal, min_dist,
+        max_dist, valid) plus the packed projection rows proj8 [P, 8] =
+        (xyz, normal, min, max); cached per map version (full upload on a
+        version change)."""
+        if getattr(self, "_dev_pts_v", -1) == self.version:
+            return self._dev_pts
+        d = {k: self._to_dev(getattr(self, "pt_" + k))
+             for k in ("xyz", "desc", "normal", "min_dist", "max_dist",
+                       "valid")}
+        d["proj8"] = torch.cat([d["xyz"], d["normal"], d["min_dist"][:, None],
+                                d["max_dist"][:, None]], dim=1)
+        self._dev_pts, self._dev_pts_v = d, self.version
+        return d
+
+    def device_kf_obs(self) -> dict:
+        """Device copies of the observation structure for the on-device
+        local-keyframe selection: feat_point [K, N], point_bits
+        [K, max_pt/32] int32, valid [K] and the covisibility matrix
+        [K, K]; cached per map version."""
+        if getattr(self, "_dev_kf_v", -1) == self.version:
+            return self._dev_kf
+        self._dev_kf = {
+            "feat_point": self._to_dev(self.kf_feat_point),
+            "point_bits": self._to_dev(
+                pack_point_bits(self.kf_feat_point, self.cfg.max_pt)),
+            "valid": self._to_dev(self.kf_valid),
+            "covis": self._to_dev(self.covisibility_matrix()),
+        }
+        self._dev_kf_v = self.version
+        return self._dev_kf
+
+    # ---- insertion -----------------------------------------------------------
+
+    def add_keyframe(self, R, t, ts, frame_id, feat_xy, feat_xyn, feat_level,
+                     feat_angle, feat_desc, feat_valid, feat_point) -> int:
+        k = self.alloc_kf()
+        self.kf_R[k] = R
+        self.kf_t[k] = t
+        self.kf_ts[k] = ts
+        self.kf_frame_id[k] = frame_id
+        self.kf_feat_xy[k] = feat_xy
+        self.kf_feat_xyn[k] = feat_xyn
+        self.kf_feat_level[k] = feat_level
+        self.kf_feat_angle[k] = feat_angle
+        self.kf_feat_desc[k] = np.asarray(feat_desc).view(np.int32)
+        self.kf_feat_valid[k] = feat_valid
+        # follow fuse forwarding, drop links to dead points
+        fp = np.asarray(feat_point).copy()
+        for _ in range(4):
+            dead = (fp >= 0) & ~self.pt_valid[np.clip(fp, 0, None)]
+            if not dead.any():
+                break
+            fp = np.where(dead, self.pt_replaced_by[np.clip(fp, 0, None)], fp)
+        fp = np.where((fp >= 0) & self.pt_valid[np.clip(fp, 0, None)],
+                      fp, NO_POINT)
+        # two features on one point: keep the first
+        idx = np.where(fp >= 0)[0]
+        if len(idx):
+            _, first = np.unique(fp[idx], return_index=True)
+            dup = np.ones(len(idx), bool)
+            dup[first] = False
+            fp[idx[dup]] = NO_POINT
+        self.kf_feat_point[k] = fp
+        self.kf_valid[k] = True
+        self.version += 1
+        return k
+
+    def add_points(self, xyz, desc, ref_kf: int, normals=None,
+                   min_dist=None, max_dist=None) -> np.ndarray:
+        ids = self.alloc_points(len(xyz))
+        self.pt_xyz[ids] = xyz
+        self.pt_desc[ids] = np.asarray(desc).view(np.int32)
+        self.pt_valid[ids] = True
+        self.pt_replaced_by[ids] = -1
+        self.pt_ref_kf[ids] = ref_kf
+        self.pt_first_kf[ids] = ref_kf
+        self.pt_found[ids] = 1
+        self.pt_visible[ids] = 1
+        if normals is not None:
+            self.pt_normal[ids] = normals
+        if min_dist is not None:
+            self.pt_min_dist[ids] = min_dist
+            self.pt_max_dist[ids] = max_dist
+        self.version += 1
+        return ids
+
+    # ---- derived structures ----------------------------------------------
+
+    def incidence(self) -> np.ndarray:
+        """[K, P] bool: KF k observes point p. Cached per map version."""
+        if getattr(self, "_inc_cache_v", -1) == self.version:
+            return self._inc_cache
+        K, P = self.cfg.max_kf, self.cfg.max_pt
+        inc = np.zeros((K, P), bool)
+        kk, ff = np.where(self.kf_feat_point >= 0)
+        inc[kk, self.kf_feat_point[kk, ff]] = True
+        inc &= self.kf_valid[:, None]
+        self._inc_cache, self._inc_cache_v = inc, self.version
+        return inc
+
+    def covisibility_matrix(self) -> np.ndarray:
+        """[K, K] shared-point counts (int32), cached per map version. The
+        incidence product runs in float32, exact for counts below 2^24."""
+        if getattr(self, "_cov_cache_v", -1) == self.version:
+            return self._cov_cache
+        K = self.cfg.max_kf
+        ids = self.kf_ids()
+        cov = np.zeros((K, K), np.int32)
+        if len(ids):
+            inc = self.incidence().astype(np.float32)
+            cov[ids] = np.rint(inc[ids] @ inc.T).astype(np.int32)
+        self._cov_cache, self._cov_cache_v = cov, self.version
+        return cov
+
+    # ---- maintenance -----------------------------------------------------
+
+    def update_point_stats(self, pids: np.ndarray):
+        """Recompute representative descriptor + normal + scale range
+        (reference: MapPoint::ComputeDistinctiveDescriptors /
+        UpdateNormalAndDepth)."""
+        if len(pids) == 0:
+            return
+        inc_kf = {int(p): [] for p in pids}
+        kk, ff = np.where(np.isin(self.kf_feat_point, pids)
+                          & (self.kf_feat_point >= 0))
+        for k, f in zip(kk, ff):
+            inc_kf[int(self.kf_feat_point[k, f])].append((k, f))
+        sf = self._scale_factors
+        for p, obs in inc_kf.items():
+            if not obs:
+                continue
+            ks = np.array([o[0] for o in obs])
+            fs = np.array([o[1] for o in obs])
+            descs = self.kf_feat_desc[ks, fs]           # [M, 8]
+            if len(descs) > 1:
+                x = descs[:, None, :] ^ descs[None, :, :]
+                d = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+                self.pt_desc[p] = descs[np.argmin(np.median(d, axis=1))]
+            else:
+                self.pt_desc[p] = descs[0]
+            # normal: mean of unit vectors from camera centers to point
+            centers = -np.einsum("kij,ki->kj", self.kf_R[ks], self.kf_t[ks])
+            vecs = self.pt_xyz[p] - centers
+            norms = np.linalg.norm(vecs, axis=-1, keepdims=True)
+            self.pt_normal[p] = (vecs / np.maximum(norms, 1e-9)).mean(0)
+            n = np.linalg.norm(self.pt_normal[p])
+            if n > 1e-9:
+                self.pt_normal[p] /= n
+            # scale-invariance range from the reference KF's observation
+            ref = self.pt_ref_kf[p]
+            if ref in ks:
+                i = list(ks).index(ref)
+            else:
+                i = 0
+                self.pt_ref_kf[p] = ks[0]
+            lvl = self.kf_feat_level[ks[i], fs[i]]
+            dist = float(np.linalg.norm(vecs[i]))
+            self.pt_max_dist[p] = dist * sf[lvl]
+            self.pt_min_dist[p] = self.pt_max_dist[p] / sf[-1]
+        self.version += 1

@@ -1,0 +1,310 @@
+"""The per-frame device programs of steady-state monocular tracking.
+
+Counterpart of ``pipeline/kernels.py`` of the JAX package (visual programs
+only): ``prepare_frame`` (ORB extraction + undistortion) and
+``track_step_visual`` (motion-model projection search + pose GN, local-
+keyframe selection on point bitsets, local-map projection search + pose
+GN). PyTorch runs them eagerly; apart from the host-side id lists they read
+and the one packed fetch the tracker makes, they run on the tensors'
+device without a host sync.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..lie import SE3
+from ..models import cameras
+from ..ops import extractor, hamming, matching
+from ..ops.topk import stable_top
+from ..optim import pose_opt
+
+
+class PreparedFrame(NamedTuple):
+    """Per-frame feature data in all coordinate systems the pipeline needs."""
+
+    feat: extractor.FrameFeatures
+    xy_ud: torch.Tensor   # [N, 2] undistorted pixel coords
+    xyn: torch.Tensor     # [N, 2] normalized camera-plane coords
+
+
+def prepare_frame(img: torch.Tensor, cam: cameras.CameraParams,
+                  cfg: extractor.OrbConfig) -> PreparedFrame:
+    """ORB extraction + undistortion (reference: Frame ctor,
+    Frame.cc:513,1003). Runs on img's device."""
+    feat = extractor.extract(img, cfg)
+    xyn = cameras.unproject(cam, feat.xy)[:, :2]
+    return PreparedFrame(feat, cameras.undistort_points(cam, feat.xy), xyn)
+
+
+class ProjectedPoints(NamedTuple):
+    uv: torch.Tensor        # [P, 2] predicted pixel (undistorted frame)
+    dist: torch.Tensor      # [P] distance to camera center
+    level: torch.Tensor     # [P] int32 predicted pyramid level
+    visible: torch.Tensor   # [P] frustum + scale + view-angle gate
+
+
+def gather_and_project(T_cw: SE3, ids: torch.Tensor, pt_xyz, pt_normal,
+                       pt_min_dist, pt_max_dist, pt_valid,
+                       cam: cameras.CameraParams, scale: float = 1.2,
+                       n_levels: int = 8,
+                       pt_proj8: torch.Tensor | None = None) -> ProjectedPoints:
+    """project_points on the rows of the full map arrays named by the padded
+    id list ids [C] (-1 padding). pt_proj8: optional packed [P, 8]
+    (xyz, normal, min, max) rows — one row gather instead of four."""
+    safe = torch.clamp(ids, min=0).long()
+    valid = (ids >= 0) & pt_valid[safe]
+    if pt_proj8 is not None:
+        rows = pt_proj8[safe]
+        return project_points(T_cw, rows[:, 0:3], rows[:, 3:6], rows[:, 6],
+                              rows[:, 7], valid, cam, scale, n_levels)
+    return project_points(T_cw, pt_xyz[safe], pt_normal[safe],
+                          pt_min_dist[safe], pt_max_dist[safe], valid, cam,
+                          scale, n_levels)
+
+
+def project_points(T_cw: SE3, pts, normals, min_dist, max_dist, valid,
+                   cam: cameras.CameraParams, scale: float = 1.2,
+                   n_levels: int = 8) -> ProjectedPoints:
+    """Frustum/scale/view-angle visibility + level prediction (reference:
+    Frame::isInFrustum, Frame.cc:667)."""
+    pc = T_cw.apply(pts)
+    z = pc[..., 2]
+    uv = cameras.project(cam, pc)
+    cw = T_cw.inverse().t
+    vec = pts - cw
+    dist = torch.linalg.norm(vec, dim=-1)
+    cos_view = torch.sum(vec * normals, dim=-1) / torch.clamp(dist, min=1e-9)
+    ratio = max_dist / torch.clamp(dist, min=1e-9)
+    level = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9))
+                       / math.log(scale))
+    level = torch.clamp(level, 0, n_levels - 1).to(torch.int32)
+    visible = (valid & (z > 0.05) & cameras.in_image(cam, uv)
+               & (dist >= 0.8 * min_dist) & (dist <= 1.2 * max_dist)
+               & (cos_view > 0.5))
+    return ProjectedPoints(uv, dist, level, visible)
+
+
+class TrackResult(NamedTuple):
+    T_cw_R: torch.Tensor
+    T_cw_t: torch.Tensor
+    match_pt: torch.Tensor   # [N] map-point id per feature (-1 = none)
+    n_inliers: torch.Tensor
+
+
+def invert_matches(res: matching.MatchResult, pt_ids: torch.Tensor,
+                   n_feat: int) -> torch.Tensor:
+    """Feature -> point from point -> feature matches: [N] int32, -1 where
+    no match. Where several candidates matched one feature, the HIGHEST
+    candidate index wins, deterministically. (The JAX program writes
+    ``.at[tgt].set(upd)``, whose duplicates resolve to the last update on
+    XLA-CPU; its comment's "first projected point wins" does not hold.)"""
+    Q = pt_ids.shape[0]
+    dev = pt_ids.device
+    tgt = torch.where(res.valid, res.idx.long(),
+                      torch.full_like(res.idx, n_feat, dtype=torch.long))
+    winner = torch.full((n_feat + 1,), -1, dtype=torch.long, device=dev)
+    winner = winner.scatter_reduce(0, tgt, torch.arange(Q, device=dev),
+                                   "amax", include_self=True)[:n_feat]
+    return torch.where(winner >= 0, pt_ids[winner.clamp(min=0)].to(torch.int32),
+                       torch.full_like(winner, -1, dtype=torch.int32))
+
+
+def _match_optimize_core(T_cw0: SE3, frame: PreparedFrame,
+                         pt_ids: torch.Tensor, proj: ProjectedPoints,
+                         pt_desc: torch.Tensor, pt_xyz: torch.Tensor,
+                         radius_per_level: torch.Tensor,
+                         inv_sigma2_per_level: torch.Tensor,
+                         prior_match_pt: torch.Tensor,
+                         cam: cameras.CameraParams,
+                         proj_angle: torch.Tensor | None = None) -> TrackResult:
+    """Projection search + motion-only pose optimization (reference:
+    ORBmatcher.cc:1950/45 + Optimizer::PoseOptimization)."""
+    feat = frame.feat
+    radius = radius_per_level[proj.level.long()]
+    taken = prior_match_pt >= 0
+    desc_c = pt_desc[torch.clamp(pt_ids, min=0).long()]
+    res = matching.search_by_projection(
+        proj.uv, proj.visible & (pt_ids >= 0), desc_c, proj.level,
+        feat._replace(xy=frame.xy_ud), radius, level_lo=-1, level_hi=1,
+        max_dist=matching.TH_HIGH, ratio=0.8, taken=taken)
+    if proj_angle is not None:
+        dang = proj_angle - feat.angle[res.idx.long()]
+        res = res._replace(
+            valid=matching.rotation_consistency_mask(dang, res.valid))
+
+    N = feat.xy.shape[0]
+    match_pt = invert_matches(res, pt_ids, N)
+    match_pt = torch.where(taken, prior_match_pt, match_pt)
+
+    has = match_pt >= 0
+    X = pt_xyz[torch.where(has, match_pt, torch.zeros_like(match_pt)).long()]
+    w = inv_sigma2_per_level[feat.level.long()]
+    opt = pose_opt.pose_optimization(T_cw0, X, frame.xy_ud, w,
+                                     has & feat.valid, cam)
+    match_pt = torch.where(opt.inlier | ~has, match_pt,
+                           torch.full_like(match_pt, -1))
+    return TrackResult(opt.T_cw.R, opt.T_cw.t, match_pt,
+                       torch.sum((match_pt >= 0).to(torch.int32)))
+
+
+def match_and_optimize(T_cw0: SE3, frame: PreparedFrame, pt_ids, proj,
+                       pt_desc, pt_xyz, radius_per_level,
+                       inv_sigma2_per_level, prior_match_pt,
+                       cam: cameras.CameraParams,
+                       proj_angle=None) -> TrackResult:
+    """Projection search + pose optimization as one stage (covers
+    TrackWithMotionModel and TrackLocalMap's hot loops). pt_ids [P]: global
+    point ids of the candidates (-1 padding); pt_desc/pt_xyz are the full
+    map arrays; prior_match_pt [N]: assignments to keep; proj_angle [P]:
+    optional rotation-consistency reference angle per candidate."""
+    return _match_optimize_core(T_cw0, frame, pt_ids, proj, pt_desc, pt_xyz,
+                                radius_per_level, inv_sigma2_per_level,
+                                prior_match_pt, cam, proj_angle)
+
+
+class TrackStepResult(NamedTuple):
+    """Everything the host needs from one steady visual tracking step."""
+    n1: torch.Tensor         # stage-1 (motion-model) inlier count
+    ref_kf: torch.Tensor     # argmax-observation local keyframe
+    match_pt: torch.Tensor   # [N] final feature->point matches
+    T_cw_R: torch.Tensor
+    T_cw_t: torch.Tensor
+    ids2: torch.Tensor       # [C2] local-map candidate point ids (-1 pad)
+    visible2: torch.Tensor   # [C2] frustum-visible mask
+    angle: torch.Tensor      # [N] current frame keypoint angles
+    valid: torch.Tensor      # [N] current frame validity
+
+
+def track_step_visual(T_pred: SE3, frame: PreparedFrame, ids1, ang1,
+                      pt_xyz, pt_desc, pt_normal, pt_min_dist, pt_max_dist,
+                      pt_valid, kf_feat_point, kf_valid, covis, kf_point_bits,
+                      radius1_per_level, radius2_per_level,
+                      inv_sigma2_per_level, cam: cameras.CameraParams,
+                      scale: float = 1.2, n_levels: int = 8,
+                      min_covis_w: int = 15, local_cap: int = 4096,
+                      pt_proj8=None) -> TrackStepResult:
+    """The whole steady-state visual tracking step:
+
+      motion-model projection search + pose GN      (Tracking.cc:3352)
+      -> local-keyframe selection on the device      (Tracking.cc:4132)
+      -> local-point union + projection at the       (Tracking.cc:3979)
+         stage-1 pose
+      -> local-map projection search + pose GN       (Tracking.cc:3474)
+
+    ids1 [C1] stage-1 candidate point ids (-1 pad); ang1 [C1] their
+    rotation-consistency angles; kf_feat_point [K, N], kf_valid [K],
+    covis [K, K] and kf_point_bits [K, P/32] int32 describe the map's
+    observation structure."""
+    res1, ref_kf, ids2, proj2, res2 = _track_step_visual_core(
+        T_pred, frame, ids1, ang1, pt_xyz, pt_desc, pt_normal, pt_min_dist,
+        pt_max_dist, pt_valid, kf_feat_point, kf_valid, covis, kf_point_bits,
+        radius1_per_level, radius2_per_level, inv_sigma2_per_level, cam,
+        scale, n_levels, min_covis_w, local_cap, pt_proj8=pt_proj8)
+    return TrackStepResult(res1.n_inliers, ref_kf, res2.match_pt,
+                           res2.T_cw_R, res2.T_cw_t, ids2, proj2.visible,
+                           frame.feat.angle, frame.feat.valid)
+
+
+def _pack_mask_bits(m: torch.Tensor) -> torch.Tensor:
+    """[P] bool -> [P/32] int32 bitset (bit p & 31 of word p >> 5)."""
+    shifts = torch.arange(32, dtype=torch.int64, device=m.device)
+    words = torch.sum(m.reshape(-1, 32).to(torch.int64) << shifts, dim=1)
+    words = words - (words >= 2 ** 31).to(torch.int64) * 2 ** 32
+    return words.to(torch.int32)
+
+
+def _track_step_visual_core(T_pred: SE3, frame: PreparedFrame, ids1, ang1,
+                            pt_xyz, pt_desc, pt_normal, pt_min_dist,
+                            pt_max_dist, pt_valid, kf_feat_point, kf_valid,
+                            covis, kf_point_bits, radius1_per_level,
+                            radius2_per_level, inv_sigma2_per_level,
+                            cam: cameras.CameraParams, scale: float,
+                            n_levels: int, min_covis_w: int, local_cap: int,
+                            pt_proj8=None):
+    """Body of track_step_visual. The selection stage works on the [K, P/32]
+    point-membership bitsets: per-KF observation counts are AND + popcount
+    against the matched-point bitset, and the local point union is an
+    OR-reduction."""
+    P = pt_xyz.shape[0]
+    K = kf_feat_point.shape[0]
+    dev = pt_xyz.device
+
+    # ---- stage 1: track with motion model --------------------------------
+    proj1 = gather_and_project(T_pred, ids1, pt_xyz, pt_normal, pt_min_dist,
+                               pt_max_dist, pt_valid, cam, scale, n_levels,
+                               pt_proj8=pt_proj8)
+    no_prior = torch.full((frame.feat.xy.shape[0],), -1, dtype=torch.int32,
+                          device=dev)
+    res1 = _match_optimize_core(T_pred, frame, ids1, proj1, pt_desc, pt_xyz,
+                                radius1_per_level, inv_sigma2_per_level,
+                                no_prior, cam, proj_angle=ang1)
+    match1 = res1.match_pt
+    T1 = SE3(res1.T_cw_R, res1.T_cw_t)
+
+    # ---- local-keyframe selection (UpdateLocalKeyFrames) ------------------
+    # matched-point mask; ids outside [0, P) are dropped like mode="drop"
+    ok1 = (match1 >= 0) & (match1 < P)
+    # index_fill_ rather than `x[idx] = True`: assigning a Python scalar
+    # through indexing copies it from the host, a host sync
+    m = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.where(ok1, match1, torch.full_like(match1, P)).long(), True)
+    matched_bits = _pack_mask_bits(m[:P])
+    obs = torch.sum(hamming.popcount32(kf_point_bits & matched_bits[None, :]),
+                    dim=1, dtype=torch.int32)
+    obs = torch.where(kf_valid, obs, torch.zeros_like(obs))
+    cnt10, top10 = stable_top(obs, 10)
+    sel10 = cnt10 > 0
+    ref_kf = top10[0]
+    # extend by each selected KF's top covisible neighbours (weight >= 15)
+    w10 = covis[top10]                                        # [10, K]
+    w10 = torch.where(w10 >= min_covis_w, w10, torch.zeros_like(w10))
+    nb_w, nb = stable_top(w10, 10)                           # [10, 10]
+    nb_flat = torch.where(sel10[:, None] & (nb_w > 0), nb,
+                          torch.full_like(nb, K)).reshape(-1)
+    local_k = torch.zeros(K + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, torch.cat([torch.where(sel10, top10, torch.full_like(top10, K)),
+                      nb_flat]), True)[:K]
+
+    # ---- local point union -> padded candidate list -----------------------
+    x = torch.where((local_k & kf_valid)[:, None], kf_point_bits,
+                    torch.zeros_like(kf_point_bits))
+    # OR-reduction as a halving tree (the JAX program's order; OR is exact)
+    if x.shape[0] & (x.shape[0] - 1):
+        K2 = 1 << (x.shape[0] - 1).bit_length()
+        x = torch.cat([x, torch.zeros((K2 - x.shape[0], x.shape[1]),
+                                      dtype=x.dtype, device=dev)])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = x[:h] | x[h:]
+    union = x[0]
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    # arithmetic right shift on int32: mask after shifting
+    pmask = (((union[:, None] >> shifts[None, :]) & 1) > 0).reshape(P)
+    pmask = pmask & pt_valid
+    C2 = min(P, local_cap)
+    # compact the first C2 set bits (ascending id) via cumsum + scatter
+    pos = torch.cumsum(pmask.to(torch.int32), dim=0) - 1
+    tgt = torch.where(pmask & (pos < C2), pos, torch.full_like(pos, C2))
+    ids2 = torch.full((C2 + 1,), -1, dtype=torch.int32, device=dev)
+    ids2 = ids2.scatter(0, tgt, torch.arange(P, dtype=torch.int32,
+                                             device=dev))[:C2]
+
+    # ---- stage 2: track local map at the stage-1 pose ----------------------
+    proj2 = gather_and_project(T1, ids2, pt_xyz, pt_normal, pt_min_dist,
+                               pt_max_dist, pt_valid, cam, scale, n_levels,
+                               pt_proj8=pt_proj8)
+    res2 = _match_optimize_core(T1, frame, ids2, proj2, pt_desc, pt_xyz,
+                                radius2_per_level, inv_sigma2_per_level,
+                                match1, cam, proj_angle=None)
+    return res1, ref_kf, ids2, proj2, res2
+
+
+def level_weights(n_levels: int = 8, scale: float = 1.2):
+    """(radius_scale[l], inv_sigma2[l]) numpy arrays used by matching and
+    optimization."""
+    sf = scale ** np.arange(n_levels, dtype=np.float32)
+    return sf.astype(np.float32), (1.0 / (sf * sf)).astype(np.float32)

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card with the CUDA toolkit (the kernels are
+built from csrc/ with nvcc on first use) and skip elsewhere. The machine
+with the card has no JAX, so run them without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: exact equality of values and indices, at the shapes of the
+752x480, 1024-feature main path plus constructed ties and gated rows, and
+for the best-2 searches also at a shape that is no multiple of 128.
+"""
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_detailed_comments_tpu_torch import native
+from orb_slam3_detailed_comments_tpu_torch.ops import hamming, patches, topk
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(5)
+
+
+def _same(a, b):
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("rows", [360, 35, 1])
+def test_cell_topk_kernel_equals_plain(dev, rng, rows):
+    x = np.where(rng.uniform(size=(rows, 1024)) < 0.08,
+                 rng.integers(7, 100, (rows, 1024)), 0).astype(np.float32)
+    x[0, :] = 0.0
+    if rows > 3:
+        x[1, [5, 900]] = 42.0
+        x[2, :] = -np.inf
+        x[3, :] = -np.inf
+        x[3, [7, 700]] = 3.0
+    xc = torch.from_numpy(x).to(dev)
+    before = native.launches["cell_topk"]
+    v, i = topk.cell_topk(xc, 8)
+    assert native.launches["cell_topk"] == before + 1
+    vp, ip = topk.cell_topk_plain(xc, 8)
+    _same(v, vp)
+    _same(i, ip)
+
+
+@pytest.mark.parametrize("ph", [31, 37])
+def test_gather_patches_kernel_equals_plain(dev, rng, ph):
+    atlas = torch.from_numpy(
+        rng.uniform(0, 255, (2296, 896)).astype(np.float32)).to(dev)
+    rc = np.stack([rng.integers(0, 2296 - ph, 1024),
+                   rng.integers(0, 752 - ph, 1024)], 1).astype(np.int32)
+    rc[:3] = [[-4, -9], [2290, 890], [0, 0]]        # clamped corners
+    rcc = torch.from_numpy(rc).to(dev)
+    _same(patches.gather_patches(atlas, rcc, ph),
+          patches.gather_patches_plain(atlas, rcc, ph))
+
+
+def _desc(rng, n, dev):
+    d = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(d.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("Q,K", [(1024, 1024), (4096, 1024), (1000, 1000)])
+def test_windowed_best2_kernel_equals_plain(dev, rng, Q, K):
+    da, db = _desc(rng, Q, dev), _desc(rng, K, dev)
+    db[7] = da[0]
+    db[9] = da[0]                                    # tie: i1 = 7, d2 == d1
+    f = lambda a: torch.from_numpy(a).to(dev)
+    q_uv = f(rng.uniform(0, 752, (Q, 2)).astype(np.float32))
+    t_xy = f(rng.uniform(0, 752, (K, 2)).astype(np.float32))
+    t_xy[7] = t_xy[9] = q_uv[0]
+    q_r = f(rng.uniform(4, 60, Q).astype(np.float32))
+    q_r[1] = 0.0                                     # all-gated row
+    q_lv = f(rng.integers(0, 8, Q).astype(np.int32))
+    t_lv = f(rng.integers(0, 8, K).astype(np.int32))
+    t_lv[7] = t_lv[9] = q_lv[0]
+    lo = torch.full((Q,), -1, dtype=torch.int32, device=dev)
+    hi = torch.ones(Q, dtype=torch.int32, device=dev)
+    qv = f(rng.uniform(size=Q) < 0.9)
+    qv[0] = True
+    tv = f(rng.uniform(size=K) < 0.9)
+    tv[7] = tv[9] = True
+    args = (da, q_uv, q_lv, q_r, lo, hi, qv, db, t_xy, t_lv, tv)
+    out = hamming.hamming_best2_windowed(*args)
+    ref = hamming.hamming_best2_windowed_plain(*args)
+    for a, b in zip(out, ref):
+        _same(a, b)
+    assert int(out[1][0]) == 7 and int(out[0][0]) == 0 == int(out[2][0])
+    assert int(out[0][1]) == hamming.BIG and int(out[1][1]) == 0
+
+
+@pytest.mark.parametrize("Q,K", [(1024, 1024), (1000, 1000)])
+def test_best2_kernel_equals_plain(dev, rng, Q, K):
+    da, db = _desc(rng, Q, dev), _desc(rng, K, dev)
+    db[3] = db[8] = da[0]
+    vb = torch.from_numpy(rng.uniform(size=K) < 0.9).to(dev)
+    vb[3] = vb[8] = True
+    out = hamming.hamming_best2(da, db, vb)
+    ref = hamming.hamming_best2_plain(da, db, vb)
+    for a, b in zip(out, ref):
+        _same(a, b)
+    out = hamming.hamming_best2(da, db, torch.zeros_like(vb))
+    assert bool((out[0] == hamming.BIG).all()) and bool((out[1] == 0).all())
+
+
+def test_matching_launches_the_kernels_at_any_shape(dev, rng):
+    """match_nn and search_by_projection on card tensors launch the best-2
+    kernels whatever Q and K are (no shape falls back to a dense search)."""
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor, matching
+    Q, K = 1000, 1000
+    da, db = _desc(rng, Q, dev), _desc(rng, K, dev)
+    v = torch.ones(K, dtype=torch.bool, device=dev)
+    before = dict(native.launches)
+    matching.match_nn(da, v, db, v, mutual=True)
+    assert native.launches["hamming_best2"] == before["hamming_best2"] + 2
+    f = lambda a: torch.from_numpy(a).to(dev)
+    xy = f(rng.uniform(0, 752, (K, 2)).astype(np.float32))
+    feat = extractor.FrameFeatures(
+        xy, f(rng.integers(0, 8, K).astype(np.int32)),
+        torch.zeros(K, device=dev), torch.zeros(K, device=dev), db, v)
+    matching.search_by_projection(xy[:Q], v[:Q], da, feat.level[:Q], feat, 4.0)
+    assert (native.launches["hamming_best2_windowed"]
+            == before["hamming_best2_windowed"] + 1)
