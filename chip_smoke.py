@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py     # the whole check, about 2-3 minutes
+    python3 chip_smoke.py     # the whole check, a few minutes
 
 Phases, each of which raises on failure:
   1. card:   a CUDA card must be present; prints its name and power limit;
   2. build:  compiles the port's CUDA kernels from csrc/ (nvcc, sm_90a);
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the 752x480 / 1024-feature main path, with ties, gated rows and -inf
-     padding (exact equality). Timed as device time (torch.profiler, the
+     padding (exact equality; dense_frontend's moment maps within an
+     absolute tolerance); gather_patches both at the atlas shapes of the
+     default front end and at the per-level shapes of the fused one. Timed
+     as device time (torch.profiler, the
      "ms" of the JSON record) and with CUDA events around the host's calls
      (launch gaps included), beside the plain version, a PyTorch library
      call where one computes the same function, and the least time the
@@ -21,7 +24,15 @@ Phases, each of which raises on failure:
      (torch.profiler: device time and kernels per frame, and for
      prepare_frame and pose_optimization alone; table in
      chiprun_out/profile_frames.txt), re-runs two frames on the CPU and
-     compares.
+     compares;
+  5. bootstrap path: a fresh map and tracker on the fused front end, fed the
+     rendered orbit from the first image: two-view initialisation, initial
+     bundle adjustment, one frame through reference-keyframe + local-map
+     tracking, then the steady fused step. Gates the map (points,
+     invariants), the path each frame took, the launch counts (all five
+     kernels) and the scale-aligned ATE; re-runs two frames on the CPU;
+     counts the host syncs of 3 frames; profiles prepare_frame alone on
+     both front ends and times whole steady frames on either, in turns.
 
 Output: per-phase lines, then on lines of their own the kernels' JSON
 record, the card's name and power limit (nvidia-smi's csv), and last
@@ -30,6 +41,7 @@ there is no CUDA card or the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -148,7 +160,7 @@ def kernel_phase(dev, rates):
     and the best-2 searches also at a shape that is no multiple of 128."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.ops import (
-        extractor, hamming, patches, pyramid, topk)
+        brief, extractor, hamming, patches, pyramid, topk)
     rng = np.random.default_rng(0)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     H, W = CAM_KW["height"], CAM_KW["width"]
@@ -219,6 +231,33 @@ def kernel_phase(dev, rates):
         lambda: [patches.gather_patches(atlas, rc, ph) for rc, ph in calls],
         lambda: [patches.gather_patches_plain(atlas, rc, ph)
                  for rc, ph in calls]))
+    # ... and as the fused front end calls it (brief.extract_patches): 8
+    # calls a frame, each level image as its own atlas, the level's budget
+    # of 37x37 windows at patch_corners' corners, two of them moved outside
+    pw = brief.PATCH_W
+    lcalls = []
+    for lv, (lvl, n) in enumerate(zip(levels, budgets)):
+        ch, cw = (int(round(d / orb.scale ** lv)) for d in (H, W))
+        yx = np.stack([rng.integers(0, ch, n), rng.integers(0, cw, n)], 1)
+        rc = brief.patch_corners(f(yx.astype(np.int32)), brief.PATCH_R,
+                                 (ch, cw))
+        rc[:2] = f(np.array([[-4, -9], [lvl.shape[0] - 2, lvl.shape[1] - 1]],
+                            np.int32))
+        lcalls.append((lvl, rc))
+    err_l = max(same("gather_patches (per level)",
+                     [patches.gather_patches(lvl, rc, pw)],
+                     [patches.gather_patches_plain(lvl, rc, pw)])
+                for lvl, rc in lcalls)
+    rec[-1]["max_abs_err"] = max(err, err_l)
+    b, by = bound_ms(sum(rc.numel() * 4 + 2 * rc.shape[0] * pw * pw * 4
+                         for _, rc in lcalls), 0)
+    rec[-1]["per_level"] = timed(dict(
+        max_abs_err=err_l, bound_ms=b, bound_by=by,
+        unit=f"one frame on the fused front end: 8 calls, {sum(budgets)} "
+             f"patches of {pw}x{pw}, each from its level image"),
+        lambda: [patches.gather_patches(lvl, rc, pw) for lvl, rc in lcalls],
+        lambda: [patches.gather_patches_plain(lvl, rc, pw)
+                 for lvl, rc in lcalls])
 
     # 3. hamming_best2_windowed: stage 1 (Q=1024) and stage 2 (Q=4096)
     sf = 1.2 ** np.arange(8)
@@ -301,13 +340,130 @@ def kernel_phase(dev, rates):
         unit="one call, 1024x1024 (not on the steady path)"),
         lambda: hamming.hamming_best2(*args),
         lambda: hamming.hamming_best2_plain(*args), plain_reps=5))
+    rec.append(frontend_kernel_check(dev))
     for r in rec:
-        log(f"kernel {r['name']}: equal to plain; device {r['ms']:.4f} ms "
+        held = ("equal to plain" if r["max_abs_err"] == 0 else
+                f"within {r['max_abs_err']:.4f} of plain")
+        log(f"kernel {r['name']}: {held}; device {r['ms']:.4f} ms "
             f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.5f} by {r['bound_by']}); CUDA events "
             f"{r['event_ms']:.4f} ms (plain {r['plain_event_ms']:.4f}) per "
             f"{r['unit']}")
+        if "per_level" in r:
+            q = r["per_level"]
+            log(f"  {r['name']} per level: equal to plain; device "
+                f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, bound "
+                f"{q['bound_ms']:.5f} by {q['bound_by']}); CUDA events "
+                f"{q['event_ms']:.4f} ms (plain {q['plain_event_ms']:.4f}) "
+                f"per {q['unit']}")
     return rec
+
+
+# float operations per pixel that dense_frontend's four maps need, counted
+# from the cheapest form in the repo, the plain version of ops/frontend.py
+# (a bound is the least work of the function, not of one implementation):
+#   moments  running row sums over |u| <= 1 .. 15, shared by every row that
+#            uses a half-width: 15 x (2 add for the sum, sub + mul + add for
+#            the u-weighted sum) = 75; then 31 adds for m10 and 30 mul + 30
+#            add for m01 = 91;
+#   blur     separable, 7 mul + 6 add each way, one round = 27;
+#   FAST     16 differences; per sign, 9-long arc minima by window doubling
+#            (4 x 16 min) and 15 max, the negated sign by min/max duality;
+#            1 negation, 1 max = 176;
+#   NMS      separable 3x3 max (2 + 2), compare, select = 6.
+# csrc/frontend.cu itself sums the 709 window taps directly, with a
+# conditioning subtraction per tap: about 3,360 operations a pixel.
+FRONTEND_OPS_PER_PIXEL = (75 + 91) + 27 + 176 + 6
+MOMENT_TOL = 5.0       # absolute, on moments of order 1e5 (summation order)
+ANGLE_TOL = 1e-3       # rad, at interior points
+
+
+def frontend_kernel_check(dev):
+    """dense_frontend against its plain version on the 8 level shapes of a
+    rendered 752x480 frame, a small odd shape and a constant image: score
+    and blur exactly equal over the whole image, each moment map within
+    MOMENT_TOL, angles read from the maps within ANGLE_TOL at random
+    interior points (1024 a level) whose moments do not vanish. Then timed
+    over one frame's 8 calls."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import (
+        brief, extractor, frontend, pyramid)
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    rng = np.random.default_rng(5)
+    cam = cameras.pinhole(**CAM_KW)
+    planes = sr.default_world(np.random.default_rng(3))
+    R, t = sr.orbit_trajectory(N_TRAJ)
+    img = np.round(sr.render_frame_raycast(cam, planes, R[7], t[7])[0])
+    orb = extractor.OrbConfig()
+    levels = pyramid.build_pyramid(
+        torch.from_numpy(img.astype(np.float32)).to(dev), orb.n_levels,
+        orb.scale)
+    extra = [torch.from_numpy(np.round(rng.uniform(0, 255, (37, 53))).astype(
+        np.float32)).to(dev), torch.full((64, 96), 77.0, device=dev)]
+    worst = dict(m10=0.0, m01=0.0, angle=0.0)
+    n_angles = 0
+    for k, lvl in enumerate(levels + extra):
+        lvl = lvl.contiguous()
+        got = frontend.dense_frontend(lvl)
+        torch.cuda.synchronize()
+        ref = frontend.dense_frontend_plain(lvl)
+        H, W = lvl.shape
+        for name, g, r in zip(("score", "blur"), got[:2], ref[:2]):
+            if g.shape != r.shape or not torch.equal(g, r):
+                bad = int((g != r).sum())
+                raise AssertionError(
+                    f"dense_frontend {name} differs from its plain version "
+                    f"on {bad} pixels of the {H}x{W} image")
+        for name, g, r in zip(("m10", "m01"), got[2:], ref[2:]):
+            err = float((g - r).abs().max())
+            worst[name] = max(worst[name], err)
+            if not err < MOMENT_TOL:
+                raise AssertionError(f"dense_frontend {name}: {err} from its "
+                                     f"plain version on the {H}x{W} image")
+        if min(H, W) > 40:
+            yx = torch.from_numpy(np.stack(
+                [rng.integers(16, H - 16, 1024),
+                 rng.integers(16, W - 16, 1024)], 1).astype(np.int32)).to(dev)
+            d = (brief.angle_from_maps(got[2], got[3], yx)
+                 - brief.angle_from_maps(ref[2], ref[3], yx))
+            # an angle is defined only where the moments do not vanish: a
+            # moment error of MOMENT_TOL turns the angle by at most
+            # ANGLE_TOL where |m| >= MOMENT_TOL / ANGLE_TOL
+            flat = yx[:, 0].long() * W + yx[:, 1].long()
+            strong = torch.hypot(ref[2].reshape(-1)[flat],
+                                 ref[3].reshape(-1)[flat]) >= (
+                                     MOMENT_TOL / ANGLE_TOL)
+            n_angles += int(strong.sum())
+            d = float((torch.atan2(torch.sin(d), torch.cos(d)).abs()
+                       * strong).max())
+            worst["angle"] = max(worst["angle"], d)
+            if not d < ANGLE_TOL:
+                raise AssertionError(f"dense_frontend angles: {d} rad from "
+                                     f"the plain version's on level {k}")
+    log(f"  dense_frontend: score and blur equal on {len(levels)} levels + "
+        f"{len(extra)} extra shapes; worst moment error m10 "
+        f"{worst['m10']:.4f} m01 {worst['m01']:.4f} (tolerance "
+        f"{MOMENT_TOL}), worst angle error {worst['angle']:.2e} rad over "
+        f"{n_angles} interior points with non-vanishing moments")
+    if n_angles < 1024:
+        raise AssertionError(f"only {n_angles} points to compare angles at")
+    n_px = sum(int(l.numel()) for l in levels)
+    b, by = bound_ms(n_px * 20, n_px * FRONTEND_OPS_PER_PIXEL)
+    log(f"  dense_frontend bounds over {n_px} pixels: bytes "
+        f"{bound_ms(n_px * 20)[0]:.5f} ms (1 read + 4 writes of float32), "
+        f"operations {bound_ms(0, n_px * FRONTEND_OPS_PER_PIXEL)[0]:.5f} ms "
+        f"({FRONTEND_OPS_PER_PIXEL} a pixel)")
+    levels = [l.contiguous() for l in levels]
+    return timed(dict(
+        name="dense_frontend", route="cuda",
+        source=f"{PKG}/csrc/frontend.cu",
+        replaces="orb_slam3_detailed_comments_tpu/ops/pallas_frontend.py:187",
+        max_abs_err=max(worst["m10"], worst["m01"]), bound_ms=b, bound_by=by,
+        unit=f"one frame: 8 calls, {n_px} pixels"),
+        lambda: [frontend.dense_frontend(l) for l in levels],
+        lambda: [frontend.dense_frontend_plain(l) for l in levels],
+        plain_reps=5)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -315,7 +471,7 @@ def _restore(tracking, cam, m, track_cfg, orb_cfg, dev, snap):
     """A tracker on map m, in the state another tracker had at a snapshot."""
     tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
     for key, val in snap.items():
-        setattr(tk, key, val)
+        setattr(tk, key, list(val) if isinstance(val, list) else val)
     return tk
 
 
@@ -433,6 +589,222 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
                 profile=prof)
 
 
+# ---------------------------------------------------------------- phase 5
+# bootstrap configuration: phase 4's world on test_pipeline_mono's 60-frame
+# orbit, fed from the first image on the fused front end. On the CPU the
+# port initialises at frame 4 and its two-keyframe map carries tracking to
+# frame 52; the JAX Tracker alone, which inserts keyframes, reads the same
+# on the same frames (tests/run_bootstrap_fullsize.py prints both).
+N_BOOT = 48
+BOOT_GATES = dict(init_by=15, min_points=100, steady_frames=10, ate_m=0.05,
+                  cpu_match=0.99, cpu_pose=1e-3)
+
+
+def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
+                   orb_cfg=None, track_cfg=None, gates=BOOT_GATES):
+    """A fresh map and tracker fed the rendered orbit from NO_IMAGES_YET:
+    two-view initialisation, initial BA, one frame through reference-
+    keyframe + local-map tracking, then the steady fused step. Gates the
+    map, the path each frame took, the launch counts and the scale-aligned
+    ATE; re-runs two steady frames on the CPU; on the card counts the host
+    syncs of 3 frames, profiles prepare_frame on both front ends and times
+    whole steady frames on either."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig, MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import tracking
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+
+    cam = cameras.pinhole(**cam_kw)
+    map_cfg = map_cfg or MapConfig()
+    orb_cfg = orb_cfg or OrbConfig()
+    track_cfg = track_cfg or tracking.TrackingConfig(frontend="fused")
+    planes = sr.default_world(np.random.default_rng(3))
+    R, t = sr.orbit_trajectory(60)
+    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+            for i in range(n_frames)}
+    C = sr.camera_centers(R, t)
+    ts = 0.05 * np.arange(len(C))
+
+    m = MapStore(map_cfg, dev)
+    tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
+    init_at = None
+    how, est, times, out, snaps = {}, [], [], {}, {}
+    native.reset_launches()                 # the bootstrap path's run starts
+    for i in range(n_frames):
+        if init_at is not None and i in (init_at + 5, init_at + 8):
+            snaps[i] = dict(last=tk.last, velocity=tk.velocity,
+                            ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
+                            state=tk.state, trajectory=list(tk.trajectory),
+                            frame_id=tk.frame_id)
+        steps0, nn0 = tk.n_steps, native.launches["hamming_best2"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T = tk.track_monocular(imgs[i], float(ts[i]))
+        times.append(time.perf_counter() - t0)
+        if T is None:
+            how[i] = "none"
+            continue
+        est.append((ts[i], -T[:3, :3].T @ T[:3, 3]))
+        out[i] = (T, tk.cur_match.copy())
+        if init_at is None:
+            init_at, how[i] = i, "init"
+            n_pts, errs = m.n_points, m.check_invariants()
+            log(f"initialised at frame {i}: {m.n_kf} keyframes, {n_pts} "
+                f"points after the initial BA, invariants {errs}; the "
+                f"two-view solve had {tk.n_init_matches} matches and "
+                f"triangulated {tk.n_init_good} of them, so "
+                f"{n_pts / max(tk.n_init_matches, 1):.3f} of the matches "
+                f"became map points")
+            if n_pts < gates["min_points"] or errs:
+                raise AssertionError(f"initial map: {n_pts} points, {errs}")
+        elif tk.n_steps > steps0:
+            how[i] = "steady"
+        else:
+            how[i] = "ref_kf"
+            nn = native.launches["hamming_best2"] - nn0
+            if dev.type == "cuda" and nn < 2:
+                raise AssertionError(f"reference-keyframe tracking launched "
+                                     f"hamming_best2 {nn} times")
+    launches = dict(native.launches)        # ... and ends here
+    log(f"frames by path: {how}")
+    if init_at is None or init_at >= gates["init_by"]:
+        raise AssertionError(f"not initialised within {gates['init_by']} "
+                             f"frames")
+    if how.get(init_at + 1) != "ref_kf":
+        raise AssertionError(f"frame {init_at + 1} took path "
+                             f"{how.get(init_at + 1)}, not the reference "
+                             f"keyframe + local map")
+    steady = 0
+    for i in range(init_at + 2, n_frames):
+        if how[i] != "steady":
+            break
+        steady += 1
+    if steady < gates["steady_frames"]:
+        raise AssertionError(f"only {steady} frames on the steady step")
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(
+        ts, C, np.array([e[0] for e in est]), np.array([e[1] for e in est]))
+    log(f"{steady} consecutive steady frames after frame {init_at + 1}; "
+        f"{len(est)} frames tracked in all; scale-aligned ATE {rmse:.5f} m "
+        f"over {n_ate} poses (scale {scale:.4f})")
+    if not rmse < gates["ate_m"]:
+        raise AssertionError(f"ATE {rmse} m over the gate")
+    expect = dict(dense_frontend=orb_cfg.n_levels * n_frames,
+                  cell_topk=orb_cfg.n_levels * n_frames,
+                  gather_patches=orb_cfg.n_levels * n_frames)
+    log(f"launches on the bootstrap path: {launches} (expected {expect}, "
+        f"hamming_best2 >= 2, hamming_best2_windowed >= {2 * tk.n_steps})")
+    if dev.type == "cuda":
+        for name, want in expect.items():
+            if launches[name] != want:
+                raise AssertionError(f"{name}: {launches[name]} launches, "
+                                     f"expected {want}")
+        if (launches["hamming_best2"] < 2
+                or launches["hamming_best2_windowed"] < 2 * tk.n_steps):
+            raise AssertionError("a matching kernel was not launched")
+    ms = np.array([times[i] for i in range(n_frames)
+                   if how[i] == "steady"][1:]) * 1e3
+    log(f"steady frame time on the fused front end (host clock): median "
+        f"{np.median(ms):.2f} ms over {len(ms)} frames; the initialising "
+        f"frame took {times[init_at] * 1e3:.1f} ms, the reference-keyframe "
+        f"frame {times[init_at + 1] * 1e3:.1f} ms")
+
+    cpu_frames = (init_at + 5, init_at + 6)
+    syncs = prep = None
+    if dev.type == "cuda":
+        tkp = _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
+                       snaps[init_at + 8])
+        syncs = count_syncs(tkp, imgs, [init_at + 8 + j for j in range(3)])
+        img_d = torch.from_numpy(imgs[init_at + 8]).to(dev)
+        prep = {fe: profile_call(
+            lambda fe=fe: tracking.kernels.prepare_frame(img_d, cam, orb_cfg,
+                                                         fe),
+            table=f"profile_prepare_{fe}.txt") for fe in ("xla", "fused")}
+        # the host clock of one call wanders within a run: read it again
+        # in turns (xla, fused, fused, xla), three rounds of 5 calls each
+        turns = {"xla": [], "fused": []}
+        for fe in ("xla", "fused", "fused", "xla") * 3:
+            turns[fe].append(host_ms(
+                lambda: tracking.kernels.prepare_frame(img_d, cam, orb_cfg,
+                                                       fe)))
+        for fe, r in prep.items():
+            r["host_ms_turns"] = turns[fe]
+            r["host_ms"] = float(np.median(turns[fe]))
+            log(f"  prepare_frame alone, front end {fe!r}: device "
+                f"{r['device_ms']:.2f} ms in {r['kernels']} kernels, host "
+                f"clock median {r['host_ms']:.2f} ms over turns "
+                f"{[round(x, 1) for x in turns[fe]]}")
+        # whole steady frames on either front end, from one tracker state,
+        # in turns (xla, fused, fused, xla)
+        ab = {"xla": [], "fused": []}
+        ab_frames = [init_at + 8 + j for j in range(4)]
+        for fe in ("xla", "fused", "fused", "xla"):
+            tka = _restore(tracking, cam, m, dataclasses.replace(
+                track_cfg, frontend=fe), orb_cfg, dev, snaps[init_at + 8])
+            for i in ab_frames:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if tka.track_monocular(imgs[i], float(ts[i])) is None:
+                    raise AssertionError(f"frame {i} lost on front end {fe}")
+                ab[fe].append((time.perf_counter() - t0) * 1e3)
+        prep["frame_ms_median"] = {fe: float(np.median(v))
+                                   for fe, v in ab.items()}
+        log(f"  whole steady frames {ab_frames} in turns, host clock ms: "
+            f"xla {[round(x, 1) for x in ab['xla']]}, fused "
+            f"{[round(x, 1) for x in ab['fused']]}")
+
+    # the same two steady frames on the CPU, from the same map and state
+    cpu = torch.device("cpu")
+    m_cpu = MapStore.from_numpy(m.to_numpy(), map_cfg, device=cpu)
+    tkc = _restore(tracking, cam, m_cpu, track_cfg, orb_cfg, cpu,
+                   snaps[cpu_frames[0]])
+    worst_match, worst_pose = 1.0, 0.0
+    for i in cpu_frames:
+        Tc = tkc.track_monocular(imgs[i], float(ts[i]))
+        if Tc is None or i not in out:
+            raise AssertionError(f"frame {i} not tracked on both devices")
+        Tg, mg = out[i]
+        worst_match = min(worst_match, float((tkc.cur_match == mg).mean()))
+        worst_pose = max(worst_pose, float(np.abs(Tc - Tg).max()))
+    log(f"CPU re-run of frames {cpu_frames}: match_pt agreement "
+        f"{worst_match:.4f}, pose difference {worst_pose:.2e}")
+    if worst_match < gates["cpu_match"] or worst_pose > gates["cpu_pose"]:
+        raise AssertionError("card and CPU disagree on the bootstrap path")
+    return dict(launches=launches, init_at=init_at, n_points=n_pts,
+                n_init_matches=tk.n_init_matches, n_init_good=tk.n_init_good,
+                steady=steady, tracked=len(est), ate_m=rmse,
+                frame_ms_median=float(np.median(ms)), syncs=syncs,
+                prepare_frame=prep)
+
+
+def profile_call(fn, table=None):
+    """Device time, kernel count and host-clock time of one call alone; the
+    profiler's table by operator goes to chiprun_out/<table> if named."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p1:
+        fn()
+        torch.cuda.synchronize()
+    k1 = sum(e.count for e in p1.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if table:
+        out_dir = REPO / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / table).write_text(p1.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=60))
+    return dict(device_ms=device_ms(fn, reps=5), kernels=k1,
+                host_ms=host_ms(fn))
+
+
 def count_syncs(tk, imgs, frames):
     """Synchronizing CUDA calls per frame, as PyTorch's sync debug mode
     reports them, each placed at the innermost line of the port on the
@@ -527,16 +899,10 @@ def profile_frames(tk, imgs, frames):
         f"in chiprun_out/profile_frames.txt")
     log("\n".join(table.splitlines()[:12]))
     for name, (a, kw) in calls.items():
-        fn = lambda: saved[name](*a, **kw)
-        with profile(activities=[ProfilerActivity.CUDA]) as p1:
-            fn()
-            torch.cuda.synchronize()
-        k1 = sum(e.count for e in p1.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        out[name] = dict(device_ms=device_ms(fn, reps=5), kernels=k1,
-                         host_ms=host_ms(fn))
+        out[name] = profile_call(lambda: saved[name](*a, **kw))
         log(f"  {name}, one call alone: device {out[name]['device_ms']:.2f} "
-            f"ms in {k1} kernels, host clock {out[name]['host_ms']:.2f} ms")
+            f"ms in {out[name]['kernels']} kernels, host clock "
+            f"{out[name]['host_ms']:.2f} ms")
     return out
 
 
@@ -582,19 +948,27 @@ def main() -> int:
         f"__popc {rates['popc_per_s']:.3e} op/s ({POPC_PER_SM_CLK}/SM/clock)")
     rec = kernel_phase(dev, rates)
 
-    log("phase 4 main path")
+    log("phase 4 main path: steady tracking on a seeded map")
     res = main_path(dev)
+    log("phase 5 bootstrap path: from the first image, fused front end")
+    boot = bootstrap_path(dev)
     for r in rec:
-        r["launches"] = res["launches"][r["name"]]
+        r["launches"] = (res["launches"][r["name"]]
+                         + boot["launches"][r["name"]])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms", "plain_event_ms")
+            "event_ms", "plain_event_ms", "per_level")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rec],
-                    "frame": summary, "bound_rates": rates}))
+    boot_summary = {k: v for k, v in boot.items() if k != "launches"}
+    log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                for r in rec],
+                    "frame": summary, "bootstrap": boot_summary,
+                    "launches_by_path": {"steady": res["launches"],
+                                         "bootstrap": boot["launches"]},
+                    "bound_rates": rates}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

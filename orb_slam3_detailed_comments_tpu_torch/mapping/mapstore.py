@@ -1,7 +1,8 @@
 """Tensor map store: the SLAM map as fixed-capacity SoA arrays.
 
 Counterpart of ``mapping/mapstore.py`` of the JAX package, the subset that
-tracking reads (reference: src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc).
+tracking, map initialisation and bundle adjustment use (reference:
+src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc).
 Host bookkeeping runs on numpy arrays; ``device_points`` and
 ``device_kf_obs`` return tensors on the map's device, cached per
 ``version``. Inertial fields and the native host library wait for later
@@ -56,6 +57,7 @@ _KF_ARRAYS = {
     "kf_R": ((3, 3), np.float32), "kf_t": ((3,), np.float32),
     "kf_valid": ((), bool), "kf_ts": ((), np.float64),
     "kf_frame_id": ((), np.int64), "kf_prev": ((), np.int32),
+    "kf_epoch": ((), np.int64),
 }
 _KF_FEAT_ARRAYS = {
     "kf_feat_xy": ((2,), np.float32), "kf_feat_xyn": ((2,), np.float32),
@@ -87,6 +89,10 @@ class MapStore:
         self.kf_ts = np.zeros(K, np.float64)
         self.kf_frame_id = np.full(K, -1, np.int64)
         self.kf_prev = np.full(K, -1, np.int32)
+        # generation of each keyframe slot (bumped when a slot is filled):
+        # tells a trajectory row's keyframe from a later one in its slot
+        self.kf_epoch = np.zeros(K, np.int64)
+        self.map_id = 0
         self.kf_feat_xy = np.zeros((K, N, 2), np.float32)    # undistorted px
         self.kf_feat_xyn = np.zeros((K, N, 2), np.float32)   # normalized
         self.kf_feat_level = np.zeros((K, N), np.int32)
@@ -235,6 +241,7 @@ class MapStore:
             fp[idx[dup]] = NO_POINT
         self.kf_feat_point[k] = fp
         self.kf_valid[k] = True
+        self.kf_epoch[k] += 1
         self.version += 1
         return k
 
@@ -257,7 +264,20 @@ class MapStore:
         self.version += 1
         return ids
 
+    def remove_points(self, ids: np.ndarray):
+        if len(ids) == 0:
+            return
+        self.pt_valid[ids] = False
+        # detach from all keyframes
+        self.kf_feat_point[np.isin(self.kf_feat_point, ids)] = NO_POINT
+        self.version += 1
+
     # ---- derived structures ----------------------------------------------
+
+    def observation_counts(self) -> np.ndarray:
+        """[P] number of keyframes observing each point."""
+        flat = self.kf_feat_point[self.kf_valid].ravel()
+        return np.bincount(flat[flat >= 0], minlength=self.cfg.max_pt)
 
     def incidence(self) -> np.ndarray:
         """[K, P] bool: KF k observes point p. Cached per map version."""
@@ -284,6 +304,65 @@ class MapStore:
             cov[ids] = np.rint(inc[ids] @ inc.T).astype(np.int32)
         self._cov_cache, self._cov_cache_v = cov, self.version
         return cov
+
+    def covisibility(self, k: int, min_weight: int = 15) -> tuple:
+        """Keyframes sharing >= min_weight points with KF k, sorted by weight
+        (reference: KeyFrame::UpdateConnections threshold 15)."""
+        w = self.covisibility_matrix()[k].copy()
+        w[k] = 0
+        ids = np.where(w >= min_weight)[0]
+        order = np.argsort(-w[ids])
+        return ids[order], w[ids][order]
+
+    def observers_of_points(self, pt_ids) -> np.ndarray:
+        """[K] bool: live KFs observing any of pt_ids (the local-BA frontier
+        query)."""
+        return self.incidence()[:, np.asarray(pt_ids, np.int64)].any(axis=1)
+
+    def local_point_ids(self, kf_ids) -> np.ndarray:
+        """Union of points observed by the given keyframes."""
+        ids = self.kf_feat_point[kf_ids]
+        ids = np.unique(ids[ids >= 0])
+        return ids[self.pt_valid[ids]]
+
+    def check_invariants(self) -> list:
+        """Self-check of the map's graph consistency (reference:
+        Map::CheckEssentialGraph, Map.h:128). Returns a list of violation
+        strings; empty means consistent."""
+        errs = []
+        inc = self.incidence()
+        # live feature->point links must target live points
+        fp = self.kf_feat_point[self.kf_valid]
+        live = fp[fp >= 0]
+        if live.size:
+            n_dead = int((~self.pt_valid[live]).sum())
+            if n_dead:
+                errs.append(f"{n_dead} feature links target dead points")
+        # no keyframe may observe the same point through two features
+        for k in self.kf_ids():
+            row = self.kf_feat_point[k]
+            row = row[row >= 0]
+            if len(row) != len(np.unique(row)):
+                errs.append(f"KF {k} has duplicate point observations")
+        # every live point must be observed by >= 1 live keyframe
+        n_orphan = int((self.pt_valid & ~inc.any(axis=0)).sum())
+        if n_orphan:
+            errs.append(f"{n_orphan} live points have no observers")
+        # reference keyframes of live points must be live
+        ref = self.pt_ref_kf[self.pt_valid]
+        bad_ref = int(((ref < 0)
+                       | ~self.kf_valid[np.clip(ref, 0, None)]).sum())
+        if bad_ref:
+            errs.append(f"{bad_ref} live points have dead/absent ref KF")
+        # temporal chain: prev links live, strictly back in time
+        for k in self.kf_ids():
+            p = int(self.kf_prev[k])
+            if p >= 0:
+                if not self.kf_valid[p]:
+                    errs.append(f"KF {k} prev link -> dead KF {p}")
+                elif self.kf_ts[p] >= self.kf_ts[k]:
+                    errs.append(f"KF {k} prev link not back in time")
+        return errs
 
     # ---- maintenance -----------------------------------------------------
 

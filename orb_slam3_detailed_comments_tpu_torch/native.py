@@ -22,12 +22,12 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libslamkernels.so"
-SOURCES = ("topk.cu", "patches.cu", "hamming.cu")
+SOURCES = ("topk.cu", "patches.cu", "hamming.cu", "frontend.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = {"cell_topk": 0, "gather_patches": 0, "hamming_best2": 0,
-            "hamming_best2_windowed": 0}
+            "hamming_best2_windowed": 0, "dense_frontend": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "slam_hamming_best2": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     "slam_hamming_best2_windowed": [_P, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "slam_dense_frontend": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

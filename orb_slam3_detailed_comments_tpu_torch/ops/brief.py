@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from . import patches as patches_mod
+
 HALF_PATCH = 15      # orientation patch radius (reference ORBextractor.cc:76)
 PATTERN_RADIUS = 13  # BRIEF sample clip radius
 N_BITS = 256
@@ -126,3 +128,36 @@ def ic_angle_patches(patches: torch.Tensor) -> torch.Tensor:
     circular-mask moments m01, m10 (two matrix-vector products)."""
     _, _, wx, wy = _tables_on(patches.device)
     return torch.atan2(patches @ wy, patches @ wx)
+
+
+def angle_from_maps(m10: torch.Tensor, m01: torch.Tensor,
+                    yx: torch.Tensor) -> torch.Tensor:
+    """Per-keypoint angles gathered from dense moment maps; yx [N, 2] int32
+    (row, col), clamped into the map."""
+    h, w = m10.shape
+    flat = (torch.clamp(yx[:, 0], 0, h - 1).long() * w
+            + torch.clamp(yx[:, 1], 0, w - 1).long())
+    return torch.atan2(m01.reshape(-1)[flat], m10.reshape(-1)[flat])
+
+
+def patch_corners(yx: torch.Tensor, radius: int, content_hw,
+                  row_off: int = 0) -> torch.Tensor:
+    """[N, 2] int32 top-left corners of the (2r+1)^2 patches centred on yx
+    (row, col), slid inward at the content border so that a patch always
+    covers real content; ``row_off`` shifts the rows (atlas coordinates)."""
+    ch, cw = content_hw
+    w = 2 * radius + 1
+    return torch.stack([
+        torch.clamp(yx[:, 0] - radius, 0, max(ch - w, 0)) + row_off,
+        torch.clamp(yx[:, 1] - radius, 0, max(cw - w, 0)),
+    ], dim=-1).to(torch.int32)
+
+
+def extract_patches(img: torch.Tensor, yx: torch.Tensor, content_hw,
+                    radius: int = PATCH_R) -> torch.Tensor:
+    """[N, (2r+1)^2] patches of one level image centred on yx (row, col).
+    The gather is ``patches.gather_patches`` with the level image as its
+    atlas (same corner rule as the JAX version's ``dynamic_slice``)."""
+    rc = patch_corners(yx, radius, content_hw)
+    return patches_mod.gather_patches(img.contiguous(), rc,
+                                      2 * radius + 1).reshape(yx.shape[0], -1)

@@ -1,7 +1,7 @@
 """Reprojection residuals + analytic Jacobians for Gauss-Newton.
 
 Counterpart of ``optim/reproj.py`` of the JAX package (reference:
-src/OptimizableTypes.cpp EdgeSE3ProjectXYZOnlyPose). Pose perturbations are
+src/OptimizableTypes.cpp EdgeSE3ProjectXYZ[OnlyPose]). Pose perturbations are
 left-multiplied twists delta = (rho, phi): T_cw <- exp(delta) ∘ T_cw, so
 d(p_c)/d(delta) = [ I | -hat(p_c) ].
 """
@@ -24,6 +24,28 @@ def _twist_jac(Jproj: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
         rows.append(torch.stack([J0, J1, J2, J2 * y - J1 * z,
                                  J0 * z - J2 * x, J1 * x - J0 * y], dim=-1))
     return torch.stack(rows, dim=-2)
+
+
+def _point_jac(Jproj: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """J_pt = Jproj @ R, element-wise: [.., 2, 3]. R is [3, 3] for one pose
+    or [.., 3, 3] batched."""
+    rows = []
+    for k in range(Jproj.shape[-2]):
+        J0, J1, J2 = Jproj[..., k, 0], Jproj[..., k, 1], Jproj[..., k, 2]
+        rows.append(torch.stack([
+            J0 * R[..., 0, j] + J1 * R[..., 1, j] + J2 * R[..., 2, j]
+            for j in range(3)], dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def residual_full(T_cw: SE3, X_w: torch.Tensor, uv: torch.Tensor,
+                  cam: cameras.CameraParams):
+    """r, J_cam [M, 2, 6], J_pt [M, 2, 3], depth_ok [M]: for BA."""
+    pc = T_cw.apply(X_w)
+    r = uv - cameras.project(cam, pc)
+    Jproj = cameras.project_jac(cam, pc)
+    return (r, _twist_jac(Jproj, pc), _point_jac(Jproj, T_cw.R),
+            pc[..., 2] > 0.05)
 
 
 def residual_pose(T_cw: SE3, X_w: torch.Tensor, uv: torch.Tensor,

@@ -32,10 +32,11 @@ class PreparedFrame(NamedTuple):
 
 
 def prepare_frame(img: torch.Tensor, cam: cameras.CameraParams,
-                  cfg: extractor.OrbConfig) -> PreparedFrame:
+                  cfg: extractor.OrbConfig,
+                  frontend: str = "xla") -> PreparedFrame:
     """ORB extraction + undistortion (reference: Frame ctor,
     Frame.cc:513,1003). Runs on img's device."""
-    feat = extractor.extract(img, cfg)
+    feat = extractor.extract(img, cfg, frontend)
     xyn = cameras.unproject(cam, feat.xy)[:, :2]
     return PreparedFrame(feat, cameras.undistort_points(cam, feat.xy), xyn)
 

@@ -9,13 +9,16 @@ with the card has no JAX, so run them without the suite's conftest:
 Tolerance: exact equality of values and indices, at the shapes of the
 752x480, 1024-feature main path plus constructed ties and gated rows, and
 for the best-2 searches also at a shape that is no multiple of 128.
+``dense_frontend``: score and blur exactly equal, each moment map within
+5.0 absolute (moments of order 1e5 summed in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from orb_slam3_detailed_comments_tpu_torch import native
-from orb_slam3_detailed_comments_tpu_torch.ops import hamming, patches, topk
+from orb_slam3_detailed_comments_tpu_torch.ops import (
+    frontend, hamming, patches, pyramid, topk)
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -135,3 +138,45 @@ def test_matching_launches_the_kernels_at_any_shape(dev, rng):
     matching.search_by_projection(xy[:Q], v[:Q], da, feat.level[:Q], feat, 4.0)
     assert (native.launches["hamming_best2_windowed"]
             == before["hamming_best2_windowed"] + 1)
+
+
+@pytest.mark.parametrize("shape", pyramid.level_shapes(480, 752)
+                         + [(37, 53), (33, 1), (1, 70)])
+def test_dense_frontend_kernel_equals_plain(dev, rng, shape):
+    """Every level shape of a 752x480 frame, shapes below one tile and
+    single-row / single-column images."""
+    img = np.round(rng.uniform(0, 255, shape)).astype(np.float32)
+    img[: shape[0] // 2, : shape[1] // 3] = 40.0        # a flat region
+    x = torch.from_numpy(img).to(dev)
+    before = native.launches["dense_frontend"]
+    got = frontend.dense_frontend(x)
+    assert native.launches["dense_frontend"] == before + 1
+    ref = frontend.dense_frontend_plain(x)
+    _same(got[0], ref[0])
+    _same(got[1], ref[1])
+    for g, r in zip(got[2:], ref[2:]):
+        assert float((g - r).abs().max()) < 5.0
+
+
+def test_dense_frontend_rejects_what_the_kernel_does_not_take(dev):
+    with pytest.raises(TypeError):
+        frontend.dense_frontend(torch.zeros((8, 8), dtype=torch.float64,
+                                            device=dev))
+    with pytest.raises(ValueError):
+        frontend.dense_frontend(torch.zeros((4, 8, 8), device=dev))
+    with pytest.raises(ValueError):
+        frontend.dense_frontend(torch.zeros((16, 16), device=dev)[:, ::2])
+
+
+def test_fused_extractor_launches_the_kernel_once_per_level(dev, rng):
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    img = torch.from_numpy(np.round(rng.uniform(0, 255, (480, 752))).astype(
+        np.float32)).to(dev)
+    before = dict(native.launches)
+    f = extractor.extract(img, extractor.OrbConfig(), "fused")
+    assert native.launches["dense_frontend"] == before["dense_frontend"] + 8
+    assert native.launches["gather_patches"] == before["gather_patches"] + 8
+    g = extractor.extract(img.cpu(), extractor.OrbConfig(), "fused")
+    torch.cuda.synchronize()
+    same = ((f.xy.cpu() == g.xy).all(1) & (f.valid.cpu() == g.valid))
+    assert float(same.float().mean()) >= 0.995

@@ -68,6 +68,46 @@ def test_launch_counters_stay_zero_on_cpu():
                                                       120.0, 376, 240),
                                  extractor.OrbConfig(n_features=256))
     assert prep.feat.desc.shape == (256, 8)
+    fused = kernels.prepare_frame(img, cameras.pinhole(229.0, 228.5, 188.0,
+                                                       120.0, 376, 240),
+                                  extractor.OrbConfig(n_features=256),
+                                  "fused")
+    assert fused.feat.desc.shape == (256, 8)
     assert native.launches == {k: 0 for k in native.launches}
     assert set(native.launches) == {"cell_topk", "gather_patches",
-                                    "hamming_best2", "hamming_best2_windowed"}
+                                    "hamming_best2", "hamming_best2_windowed",
+                                    "dense_frontend"}
+
+
+def test_every_kernel_source_is_registered():
+    """Each csrc/*.cu is built, and each C entry has its signature."""
+    sources = sorted(p.name for p in native.CSRC.glob("*.cu"))
+    assert sources == sorted(native.SOURCES)
+    entries = set()
+    for p in native.CSRC.glob("*.cu"):
+        for line in p.read_text().splitlines():
+            if line.startswith('extern "C" int '):
+                entries.add(line.split()[3].split("(")[0])
+    assert entries == set(native._SIGNATURES)
+
+
+@pytest.mark.parametrize("module", [
+    "ops.frontend", "ops.triangulate", "optim.ba", "models.twoview",
+    "pipeline.local_mapping", "utils.evaluate_ate"])
+def test_new_modules_import_alone_without_jax(module):
+    code = (f"import sys, importlib\n"
+            f"importlib.import_module('{PKG}.{module}')\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert 'orb_slam3_detailed_comments_tpu' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_resolving_to_the_card_turns_tf32_off(monkeypatch):
+    from orb_slam3_detailed_comments_tpu_torch import device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert device.resolve(None).type == "cuda"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
