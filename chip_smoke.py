@@ -9,30 +9,34 @@ Phases, each of which raises on failure:
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the 752x480 / 1024-feature main path, with ties, gated rows and -inf
      padding (exact equality; dense_frontend's moment maps within an
-     absolute tolerance); gather_patches both at the atlas shapes of the
-     default front end and at the per-level shapes of the fused one. Timed
-     as device time (torch.profiler, the
-     "ms" of the JSON record) and with CUDA events around the host's calls
-     (launch gaps included), beside the plain version, a PyTorch library
-     call where one computes the same function, and the least time the
-     card could take (its bound);
+     absolute tolerance); the best-2 searches also at shapes from 1 x 1 to
+     64 x 5000 with ties planted across and within the kernel's lanes;
+     dense_frontend both level by level and as the frame's one call for all
+     levels; gather_patches both at the atlas shapes of the "xla" front end
+     and at the per-level shapes of the fused one. Timed as device time
+     (torch.profiler, the "ms" of the JSON record) and with CUDA events
+     around the host's calls (launch gaps included), beside the plain
+     version, a PyTorch library call where one computes the same function,
+     and the least time the card could take (its bound);
   4. main path: seeds a map from ground truth (EuRoC-sized pinhole camera,
-     OrbConfig() and MapConfig() defaults), then drives Tracker.
-     track_monocular over the trajectory, checks that every kernel of the
-     path launched as often as the frames require, gates the poses against
-     the ground truth, counts the host syncs of 3 frames, profiles 5 more
-     (torch.profiler: device time and kernels per frame, and for
-     prepare_frame and pose_optimization alone; table in
-     chiprun_out/profile_frames.txt), re-runs two frames on the CPU and
+     OrbConfig() and MapConfig() defaults, the fused front end), then drives
+     Tracker.track_monocular over the trajectory, checks that every kernel
+     of the path launched as often as the frames require, gates the poses
+     against the ground truth, counts the host syncs of 3 frames, profiles 5
+     more (torch.profiler: device time and kernels per frame, the device
+     time of each hand-written kernel, and pose_optimization alone; table
+     in chiprun_out/profile_frames.txt), re-runs two frames on the CPU and
      compares;
-  5. bootstrap path: a fresh map and tracker on the fused front end, fed the
-     rendered orbit from the first image: two-view initialisation, initial
-     bundle adjustment, one frame through reference-keyframe + local-map
-     tracking, then the steady fused step. Gates the map (points,
-     invariants), the path each frame took, the launch counts (all five
-     kernels) and the scale-aligned ATE; re-runs two frames on the CPU;
-     counts the host syncs of 3 frames; profiles prepare_frame alone on
-     both front ends and times whole steady frames on either, in turns.
+  5. bootstrap path: a fresh map and tracker, fed the rendered orbit from
+     the first image: two-view initialisation, initial bundle adjustment,
+     one frame through reference-keyframe + local-map tracking, then the
+     steady fused step. Gates the map (points, invariants), the path each
+     frame took, the launch counts (all five kernels) and the scale-aligned
+     ATE; re-runs two frames on the CPU; counts the host syncs of 3 frames;
+     profiles 3 steady frames as phase 4 does (table in
+     chiprun_out/profile_frames_bootstrap.txt) and prepare_frame alone on
+     both front ends, holds the "xla" front end's features against the
+     fused one's, and times whole steady frames on either, in turns.
 
 Output: per-phase lines, then on lines of their own the kernels' JSON
 record, the card's name and power limit (nvidia-smi's csv), and last
@@ -295,6 +299,14 @@ def kernel_phase(dev, rates):
                    hamming.hamming_best2_windowed(*a),
                    hamming.hamming_best2_windowed_plain(*a))
               for a in wcalls + [odd])
+    for Q, K in TIE_SHAPES:
+        a = tie_case(rng, Q, K, f)
+        err = max(err, same(f"hamming_best2_windowed ({Q} x {K}, ties)",
+                            hamming.hamming_best2_windowed(*a),
+                            hamming.hamming_best2_windowed_plain(*a)))
+        b = (a[0], a[7], a[10])
+        same(f"hamming_best2 ({Q} x {K}, ties)", hamming.hamming_best2(*b),
+             hamming.hamming_best2_plain(*b))
     n_pairs = sum(a[0].shape[0] * n_feat for a in wcalls)
     nbytes = sum(a[0].shape[0] * (32 + 8 + 4 * 4 + 1 + 12) for a in wcalls) \
         + 2 * n_feat * (32 + 8 + 4 + 1)
@@ -312,7 +324,8 @@ def kernel_phase(dev, rates):
         lambda: [hamming.hamming_best2_windowed_plain(*a) for a in wcalls],
         plain_reps=5))
 
-    # 4. hamming_best2 (match_nn's unmasked branch): 1024 x 1024
+    # 4. hamming_best2 (match_nn's unmasked branch): 1024 x 1024, timed as
+    # the two calls of match_nn(mutual=True) on a reference-keyframe frame
     da = db[rng.permutation(n_feat)] ^ (
         rng.uniform(size=(n_feat, 8)) < 0.05).astype(np.uint32)
     da[0] = db[3]
@@ -330,16 +343,24 @@ def kernel_phase(dev, rates):
     err = max(err, same("hamming_best2 (1000 x 1000)",
                         hamming.hamming_best2(*odd),
                         hamming.hamming_best2_plain(*odd)))
-    n_pass = n_feat * int(tv.sum())
-    b, by = bound_ms(n_feat * 32 * 2 + n_feat + 3 * n_feat * 4,
+    va = f(rng.uniform(size=n_feat) < 0.98)
+    back = (args[1], args[0], va)                        # targets -> queries
+    err = max(err, same("hamming_best2 (the mutual call)",
+                        hamming.hamming_best2(*back),
+                        hamming.hamming_best2_plain(*back)))
+    n_pass = n_feat * (int(tv.sum()) + int(va.sum()))
+    b, by = bound_ms(2 * (n_feat * 32 * 2 + n_feat + 3 * n_feat * 4),
                      n_int=18 * n_pass, n_popc=8 * n_pass, rates=rates)
     rec.append(timed(dict(
         name="hamming_best2", route="cuda", source=f"{PKG}/csrc/hamming.cu",
         replaces="orb_slam3_detailed_comments_tpu/ops/pallas_hamming.py:52",
         max_abs_err=err, bound_ms=b, bound_by=by,
-        unit="one call, 1024x1024 (not on the steady path)"),
-        lambda: hamming.hamming_best2(*args),
-        lambda: hamming.hamming_best2_plain(*args), plain_reps=5))
+        unit="one reference-keyframe frame: the 2 calls of "
+             "match_nn(mutual=True), 1024x1024 each"),
+        lambda: [hamming.hamming_best2(*args), hamming.hamming_best2(*back)],
+        lambda: [hamming.hamming_best2_plain(*args),
+                 hamming.hamming_best2_plain(*back)], plain_reps=5))
+    rec[-1]["one_call_ms"] = device_ms(lambda: hamming.hamming_best2(*args))
     rec.append(frontend_kernel_check(dev))
     for r in rec:
         held = ("equal to plain" if r["max_abs_err"] == 0 else
@@ -349,6 +370,9 @@ def kernel_phase(dev, rates):
             f"{r['bound_ms']:.5f} by {r['bound_by']}); CUDA events "
             f"{r['event_ms']:.4f} ms (plain {r['plain_event_ms']:.4f}) per "
             f"{r['unit']}")
+        if "one_call_ms" in r:
+            log(f"  {r['name']}, one 1024x1024 call: device "
+                f"{r['one_call_ms']:.4f} ms")
         if "per_level" in r:
             q = r["per_level"]
             log(f"  {r['name']} per level: equal to plain; device "
@@ -357,6 +381,52 @@ def kernel_phase(dev, rates):
                 f"{q['event_ms']:.4f} ms (plain {q['plain_event_ms']:.4f}) "
                 f"per {q['unit']}")
     return rec
+
+
+# shapes at which both best-2 searches are held with planted ties: one
+# target, fewer targets than lanes, no multiple of anything, the main path's
+# largest call, and more targets than one staged tile
+TIE_SHAPES = ((1, 1), (5, 31), (1000, 1000), (4096, 1024), (64, 5000))
+
+
+def tie_case(rng, Q, K, f):
+    """Arguments of hamming_best2_windowed with wide-open gates on most
+    pairs and ties where the kernel's lanes could get them wrong: query 0's
+    descriptor sits at targets j and j + 1 (neighbouring lanes), query 1's
+    at j and j + 32 (one lane, successive steps), query 2's two best are
+    equal but not zero, query 3 has every target gated out, query 4's only
+    admissible target is the last one."""
+    desc = lambda n: rng.integers(0, 2 ** 32, (n, 8),
+                                  dtype=np.uint64).astype(np.uint32)
+    da, db = desc(Q), desc(K)
+    t_xy = rng.uniform(0, 700, (K, 2)).astype(np.float32)
+    q_uv = rng.uniform(0, 700, (Q, 2)).astype(np.float32)
+    q_r = np.full(Q, 1000.0, np.float32)
+    t_lv = rng.integers(0, 8, K).astype(np.int32)
+    q_lv = rng.integers(0, 8, Q).astype(np.int32)
+    lo, hi = np.full(Q, -8, np.int32), np.full(Q, 8, np.int32)
+    qv, tv = np.ones(Q, bool), rng.uniform(size=K) < 0.9
+    j = int(rng.integers(0, K))
+    hit = db[j].copy()
+    for q, other in ((0, j + 1), (1, j + 32)):
+        if q < Q:
+            da[q] = hit
+            db[other % K] = hit
+            tv[[j, other % K]] = True
+    if Q > 2:                    # distance 8 to both (one bit in each word)
+        da[2] = db[(j + 5) % K] ^ np.uint32(1)
+        db[(j + 70) % K] = db[(j + 5) % K] ^ np.uint32(3)
+        tv[[(j + 5) % K, (j + 70) % K]] = True
+    if Q > 3:
+        q_r[3] = 0.0
+        q_uv[3] = -50.0
+    if Q > 4:
+        q_r[4] = 0.25
+        q_uv[4] = t_xy[K - 1]
+        q_lv[4] = t_lv[K - 1]
+        tv[K - 1] = True
+    return (f(da.view(np.int32)), f(q_uv), f(q_lv), f(q_r), f(lo), f(hi),
+            f(qv), f(db.view(np.int32)), f(t_xy), f(t_lv), f(tv))
 
 
 # float operations per pixel that dense_frontend's four maps need, counted
@@ -371,8 +441,8 @@ def kernel_phase(dev, rates):
 #            (4 x 16 min) and 15 max, the negated sign by min/max duality;
 #            1 negation, 1 max = 176;
 #   NMS      separable 3x3 max (2 + 2), compare, select = 6.
-# csrc/frontend.cu itself sums the 709 window taps directly, with a
-# conditioning subtraction per tap: about 3,360 operations a pixel.
+# csrc/frontend.cu takes this form too, but recomputes the row sums of the
+# 30 halo rows for every run of 32 output rows.
 FRONTEND_OPS_PER_PIXEL = (75 + 91) + 27 + 176 + 6
 MOMENT_TOL = 5.0       # absolute, on moments of order 1e5 (summation order)
 ANGLE_TOL = 1e-3       # rad, at interior points
@@ -380,11 +450,14 @@ ANGLE_TOL = 1e-3       # rad, at interior points
 
 def frontend_kernel_check(dev):
     """dense_frontend against its plain version on the 8 level shapes of a
-    rendered 752x480 frame, a small odd shape and a constant image: score
-    and blur exactly equal over the whole image, each moment map within
-    MOMENT_TOL, angles read from the maps within ANGLE_TOL at random
-    interior points (1024 a level) whose moments do not vanish. Then timed
-    over one frame's 8 calls."""
+    rendered 752x480 frame, a small odd shape, a constant image and two
+    step edges between 0 and 255 (where the moments' conditioning constant,
+    a tile's centre pixel, is 255 away from half the tile), each as a call
+    of its own, and the 8 levels again as the frame's one
+    dense_frontend_levels call: score and blur exactly equal over the whole
+    image, each moment map within MOMENT_TOL, angles read from the maps
+    within ANGLE_TOL at random interior points (1024 a level) whose moments
+    do not vanish. Then timed as the frame's one call."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.models import cameras
     from orb_slam3_detailed_comments_tpu_torch.ops import (
@@ -401,12 +474,28 @@ def frontend_kernel_check(dev):
         orb.scale)
     extra = [torch.from_numpy(np.round(rng.uniform(0, 255, (37, 53))).astype(
         np.float32)).to(dev), torch.full((64, 96), 77.0, device=dev)]
+    # the edges lie off the 64-pixel tiles' centres (row and column 32)
+    step = torch.zeros((96, 160), device=dev)
+    step[:, 40:] = 255.0
+    extra.append(step)
+    step = torch.full((96, 160), 255.0, device=dev)
+    step[20:] = 0.0
+    extra.append(step)
     worst = dict(m10=0.0, m01=0.0, angle=0.0)
     n_angles = 0
-    for k, lvl in enumerate(levels + extra):
-        lvl = lvl.contiguous()
-        got = frontend.dense_frontend(lvl)
-        torch.cuda.synchronize()
+    levels = [l.contiguous() for l in levels]
+    together = frontend.dense_frontend_levels(levels)
+    torch.cuda.synchronize()
+    if len(together) != len(levels):
+        raise AssertionError("dense_frontend_levels: one result per level")
+    cases = ([(f"level {k} of the frame's one call", l, g)
+              for k, (l, g) in enumerate(zip(levels, together))]
+             + [(f"image {k} alone", l, None)
+                for k, l in enumerate(levels + extra)])
+    for k, (what, lvl, got) in enumerate(cases):
+        if got is None:
+            got = frontend.dense_frontend(lvl)
+            torch.cuda.synchronize()
         ref = frontend.dense_frontend_plain(lvl)
         H, W = lvl.shape
         for name, g, r in zip(("score", "blur"), got[:2], ref[:2]):
@@ -414,13 +503,14 @@ def frontend_kernel_check(dev):
                 bad = int((g != r).sum())
                 raise AssertionError(
                     f"dense_frontend {name} differs from its plain version "
-                    f"on {bad} pixels of the {H}x{W} image")
+                    f"on {bad} pixels of the {H}x{W} image ({what})")
         for name, g, r in zip(("m10", "m01"), got[2:], ref[2:]):
             err = float((g - r).abs().max())
             worst[name] = max(worst[name], err)
             if not err < MOMENT_TOL:
                 raise AssertionError(f"dense_frontend {name}: {err} from its "
-                                     f"plain version on the {H}x{W} image")
+                                     f"plain version on the {H}x{W} image "
+                                     f"({what})")
         if min(H, W) > 40:
             yx = torch.from_numpy(np.stack(
                 [rng.integers(16, H - 16, 1024),
@@ -440,9 +530,10 @@ def frontend_kernel_check(dev):
             worst["angle"] = max(worst["angle"], d)
             if not d < ANGLE_TOL:
                 raise AssertionError(f"dense_frontend angles: {d} rad from "
-                                     f"the plain version's on level {k}")
-    log(f"  dense_frontend: score and blur equal on {len(levels)} levels + "
-        f"{len(extra)} extra shapes; worst moment error m10 "
+                                     f"the plain version's on {what}")
+    log(f"  dense_frontend: score and blur equal on {len(levels)} levels in "
+        f"one call, the same {len(levels)} alone and {len(extra)} extra "
+        f"shapes; worst moment error m10 "
         f"{worst['m10']:.4f} m01 {worst['m01']:.4f} (tolerance "
         f"{MOMENT_TOL}), worst angle error {worst['angle']:.2e} rad over "
         f"{n_angles} interior points with non-vanishing moments")
@@ -454,14 +545,13 @@ def frontend_kernel_check(dev):
         f"{bound_ms(n_px * 20)[0]:.5f} ms (1 read + 4 writes of float32), "
         f"operations {bound_ms(0, n_px * FRONTEND_OPS_PER_PIXEL)[0]:.5f} ms "
         f"({FRONTEND_OPS_PER_PIXEL} a pixel)")
-    levels = [l.contiguous() for l in levels]
     return timed(dict(
         name="dense_frontend", route="cuda",
         source=f"{PKG}/csrc/frontend.cu",
         replaces="orb_slam3_detailed_comments_tpu/ops/pallas_frontend.py:187",
         max_abs_err=max(worst["m10"], worst["m01"]), bound_ms=b, bound_by=by,
-        unit=f"one frame: 8 calls, {n_px} pixels"),
-        lambda: [frontend.dense_frontend(l) for l in levels],
+        unit=f"one frame: 1 call, {len(levels)} levels, {n_px} pixels"),
+        lambda: frontend.dense_frontend_levels(levels),
         lambda: [frontend.dense_frontend_plain(l) for l in levels],
         plain_reps=5)
 
@@ -534,10 +624,14 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     log(f"stage-2 candidates per frame (ids2 >= 0): {cands}")
     log(f"tracked {len(errs)}/{n} frames; centre error median "
         f"{np.median(errs):.5f} m, max {np.max(errs):.5f} m")
-    expect = dict(cell_topk=orb_cfg.n_levels * n, gather_patches=2 * n,
+    if track_cfg.frontend != "fused":
+        raise AssertionError("the main path runs the fused front end")
+    expect = dict(dense_frontend=n, cell_topk=orb_cfg.n_levels * n,
+                  gather_patches=orb_cfg.n_levels * n,
                   hamming_best2_windowed=2 * tk.n_steps)
     log(f"launches in the main path: {launches} (expected {expect}; "
-        f"cell_topk launches once per pyramid level)")
+        f"dense_frontend launches once per frame, cell_topk and "
+        f"gather_patches once per pyramid level)")
     if dev.type == "cuda":
         for name, want in expect.items():
             if launches[name] != want or want == 0:
@@ -622,7 +716,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     cam = cameras.pinhole(**cam_kw)
     map_cfg = map_cfg or MapConfig()
     orb_cfg = orb_cfg or OrbConfig()
-    track_cfg = track_cfg or tracking.TrackingConfig(frontend="fused")
+    track_cfg = track_cfg or tracking.TrackingConfig()
     planes = sr.default_world(np.random.default_rng(3))
     R, t = sr.orbit_trajectory(60)
     imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
@@ -636,7 +730,8 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     how, est, times, out, snaps = {}, [], [], {}, {}
     native.reset_launches()                 # the bootstrap path's run starts
     for i in range(n_frames):
-        if init_at is not None and i in (init_at + 5, init_at + 8):
+        if init_at is not None and i in (init_at + 1, init_at + 5,
+                                         init_at + 8):
             snaps[i] = dict(last=tk.last, velocity=tk.velocity,
                             ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
                             state=tk.state, trajectory=list(tk.trajectory),
@@ -694,7 +789,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         f"over {n_ate} poses (scale {scale:.4f})")
     if not rmse < gates["ate_m"]:
         raise AssertionError(f"ATE {rmse} m over the gate")
-    expect = dict(dense_frontend=orb_cfg.n_levels * n_frames,
+    expect = dict(dense_frontend=n_frames,
                   cell_topk=orb_cfg.n_levels * n_frames,
                   gather_patches=orb_cfg.n_levels * n_frames)
     log(f"launches on the bootstrap path: {launches} (expected {expect}, "
@@ -715,12 +810,29 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         f"frame {times[init_at + 1] * 1e3:.1f} ms")
 
     cpu_frames = (init_at + 5, init_at + 6)
-    syncs = prep = None
+    syncs = prep = prof = None
     if dev.type == "cuda":
         tkp = _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
                        snaps[init_at + 8])
         syncs = count_syncs(tkp, imgs, [init_at + 8 + j for j in range(3)])
+        prof = profile_frames(tkp, imgs, [init_at + 11 + j for j in range(3)],
+                              table="profile_frames_bootstrap.txt",
+                              alone=False)
+        prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
+        log(f"device busy share of a frame: {prof['busy_share']:.3f}")
+        # the frame after initialisation once more, profiled: the only
+        # frame that launches hamming_best2
+        nn0 = native.launches["hamming_best2"]
+        prof["ref_kf_frame"] = profile_frames(
+            _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
+                     snaps[init_at + 1]), imgs, [init_at + 1],
+            table="profile_frame_ref_kf.txt", alone=False)
+        if native.launches["hamming_best2"] - nn0 < 2:
+            raise AssertionError("the profiled frame did not go through "
+                                 "the reference keyframe")
         img_d = torch.from_numpy(imgs[init_at + 8]).to(dev)
+        frontends_agree(*(tracking.kernels.prepare_frame(
+            img_d, cam, orb_cfg, fe).feat for fe in ("fused", "xla")))
         prep = {fe: profile_call(
             lambda fe=fe: tracking.kernels.prepare_frame(img_d, cam, orb_cfg,
                                                          fe),
@@ -779,7 +891,28 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
                 n_init_matches=tk.n_init_matches, n_init_good=tk.n_init_good,
                 steady=steady, tracked=len(est), ate_m=rmse,
                 frame_ms_median=float(np.median(ms)), syncs=syncs,
-                prepare_frame=prep)
+                profile=prof, prepare_frame=prep)
+
+
+def frontends_agree(fused, xla):
+    """The "xla" front end, which no path runs any more, against the fused
+    one on the same image: the same keypoints (both select from an equal
+    score map), angles within 1e-3 rad, >= 97 % of descriptors equal."""
+    import torch
+    if not torch.equal(fused.valid, xla.valid):
+        raise AssertionError("the front ends keep different features")
+    v = xla.valid
+    if not (torch.equal(fused.xy[v], xla.xy[v])
+            and torch.equal(fused.level[v], xla.level[v])):
+        raise AssertionError("the front ends select different keypoints")
+    d = fused.angle[v] - xla.angle[v]
+    dang = float(torch.atan2(torch.sin(d), torch.cos(d)).abs().max())
+    same = float((fused.desc[v] == xla.desc[v]).all(1).float().mean())
+    log(f"  front end 'xla' against 'fused' on one frame: {int(v.sum())} "
+        f"keypoints equal, angles within {dang:.2e} rad, {same:.4f} of the "
+        f"descriptors equal")
+    if not dang < 1e-3 or same < 0.97:
+        raise AssertionError("the front ends' features disagree")
 
 
 def profile_call(fn, table=None):
@@ -852,18 +985,29 @@ def host_ms(fn, reps=5):
     return float(np.median(times))
 
 
-def profile_frames(tk, imgs, frames):
+# the port's kernels as the profiler names them
+KERNEL_SYMBOLS = {"cell_topk": "cell_topk_kernel",
+                  "gather_patches": "gather_patches_kernel",
+                  "hamming_best2_windowed": "best2_kernel<true>",
+                  "hamming_best2": "best2_kernel<false>",
+                  "dense_frontend": "dense_frontend_kernel"}
+
+
+def profile_frames(tk, imgs, frames, table="profile_frames.txt", alone=True):
     """torch.profiler over tracked frames: device time (sum of kernel
-    durations) and kernels per frame; the table by kernel goes to
-    chiprun_out/profile_frames.txt. The first prepare_frame and
-    pose_optimization call of the window are captured and re-run alone for
-    their device time (kernels and ms) and host time."""
+    durations) and kernels per frame, and under "own_kernels" the device
+    time and launches per frame of each hand-written kernel; the table by
+    kernel goes to chiprun_out/<table>. Only the device's activity is
+    recorded: recording the host's operators as well slows a frame of ~24k
+    kernels many times over. With alone, the first pose_optimization call
+    of the window is captured and re-run alone for its device time (kernels
+    and ms) and host time (prepare_frame alone is read in phase 5)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
 
-    stages = {"prepare_frame": kernels, "pose_optimization": kernels.pose_opt}
+    stages = {"pose_optimization": kernels.pose_opt}
     saved = {name: getattr(mod, name) for name, mod in stages.items()}
     calls = {}
 
@@ -874,11 +1018,11 @@ def profile_frames(tk, imgs, frames):
         return run
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     try:
         for name, mod in stages.items():
             setattr(mod, name, capture(name))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in frames:
                 tk.track_monocular(imgs[i], 0.05 * i)
             torch.cuda.synchronize()
@@ -890,15 +1034,26 @@ def profile_frames(tk, imgs, frames):
     dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     out = dict(device_ms=sum(e.self_device_time_total for e in dev) / 1e3 / n,
                kernels=sum(e.count for e in dev) / n)
-    table = avg.table(sort_by="self_device_time_total", row_limit=100)
+    out["own_kernels"] = {
+        name: dict(ms=sum(e.self_device_time_total for e in dev
+                          if symbol in e.key) / 1e3 / n,
+                   launches=sum(e.count for e in dev if symbol in e.key) / n)
+        for name, symbol in KERNEL_SYMBOLS.items()}
+    text = avg.table(sort_by="self_device_time_total", row_limit=100,
+                     max_name_column_width=80)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_frames.txt").write_text(table)
+    (out_dir / table).write_text(text)
     log(f"profile of frames {frames}, per frame: device time "
         f"{out['device_ms']:.2f} ms in {out['kernels']:.0f} kernels; table "
-        f"in chiprun_out/profile_frames.txt")
-    log("\n".join(table.splitlines()[:12]))
-    for name, (a, kw) in calls.items():
+        f"in chiprun_out/{table} (profiling took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    log("\n".join(text.splitlines()[:12]))
+    log("  hand-written kernels on these frames, device ms per frame "
+        "(launches per frame): " + ", ".join(
+            f"{name} {k['ms']:.4f} ({k['launches']:.1f})"
+            for name, k in out["own_kernels"].items()))
+    for name, (a, kw) in calls.items() if alone else ():
         out[name] = profile_call(lambda: saved[name](*a, **kw))
         log(f"  {name}, one call alone: device {out[name]['device_ms']:.2f} "
             f"ms in {out[name]['kernels']} kernels, host clock "
@@ -939,6 +1094,12 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        t_phase.append(time.perf_counter())
+        log(f"{name} took {t_phase[-1] - t_phase[-2]:.1f} s")
+
     log("phase 3 kernels against their plain versions")
     rates = int_rates()
     log(f"  bounds: HBM {HBM_BYTES_PER_S:.3e} B/s, float32 "
@@ -947,18 +1108,34 @@ def main() -> int:
         f"{rates['int32_ops_per_s']:.3e} op/s ({INT32_PER_SM_CLK}/SM/clock), "
         f"__popc {rates['popc_per_s']:.3e} op/s ({POPC_PER_SM_CLK}/SM/clock)")
     rec = kernel_phase(dev, rates)
+    phase_done("phase 3")
 
     log("phase 4 main path: steady tracking on a seeded map")
     res = main_path(dev)
-    log("phase 5 bootstrap path: from the first image, fused front end")
+    phase_done("phase 4")
+    log("phase 5 bootstrap path: from the first image")
     boot = bootstrap_path(dev)
+    phase_done("phase 5")
     for r in rec:
         r["launches"] = (res["launches"][r["name"]]
                          + boot["launches"][r["name"]])
+        # device time per frame on rendered frames, beside "ms" (random
+        # inputs of the same shapes): the searches' work depends on how
+        # many pairs pass their gates
+        r["real_frame_ms"] = {
+            path: run["profile"]["own_kernels"][r["name"]]
+            for path, run in (("steady", res), ("bootstrap", boot))}
+        r["real_frame_ms"]["ref_kf_frame"] = boot["profile"]["ref_kf_frame"][
+            "own_kernels"][r["name"]]
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms on random inputs per "
+            f"{r['unit']}; on rendered frames, per frame: "
+            + ", ".join(f"{path} {k['ms']:.4f} ms in {k['launches']:.1f} "
+                        f"launches" for path, k in r["real_frame_ms"].items()))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms", "plain_event_ms", "per_level")
+            "event_ms", "plain_event_ms", "per_level", "unit",
+            "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])

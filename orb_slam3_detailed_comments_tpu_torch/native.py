@@ -36,7 +36,9 @@ _SIGNATURES = {
     "slam_hamming_best2": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     "slam_hamming_best2_windowed": [_P, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "slam_dense_frontend": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "slam_dense_frontend_levels": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "slam_frontend_umax": [_P],
+    "slam_best2_lanes": [_P],
 }
 
 _lib = None

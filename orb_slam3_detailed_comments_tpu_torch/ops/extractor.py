@@ -5,11 +5,12 @@ ORBextractor::operator(), src/ORBextractor.cc:1557). Every level's detection
 is a dense tensor program with static shapes; outputs are fixed-capacity
 arrays with masks. Two front ends compute the same features:
 
-* ``"xla"`` (default): FAST, blur and orientation as separate tensor passes;
-  all levels' patches ride two atlas gathers (``ops/patches.py``);
-* ``"fused"``: one ``frontend.dense_frontend`` call per level yields the
-  NMS'd score, the rounded blur and the moment maps; angles are read from
-  the maps and the blurred patches are gathered per level.
+* ``"fused"`` (default): one ``frontend.dense_frontend_levels`` call for all
+  levels yields each level's NMS'd score, rounded blur and moment maps;
+  angles are read from the maps and the blurred patches are gathered per
+  level;
+* ``"xla"``: FAST, blur and orientation as separate tensor passes; all
+  levels' patches ride two atlas gathers (``ops/patches.py``).
 
 They differ in the outermost pixels only (wrap-around against edge
 replication), where no keypoint is selected.
@@ -22,7 +23,7 @@ import torch
 
 from . import brief, fast, frontend as frontend_mod, patches, pyramid
 
-FRONTENDS = ("xla", "fused")
+FRONTENDS = ("fused", "xla")
 
 
 class OrbConfig(NamedTuple):
@@ -68,7 +69,7 @@ def level_budgets(cfg: OrbConfig) -> list:
 
 
 def _extract_impl(img: torch.Tensor, cfg: OrbConfig, h: int, w: int,
-                  frontend: str = "xla") -> FrameFeatures:
+                  frontend: str = "fused") -> FrameFeatures:
     if frontend not in FRONTENDS:
         raise ValueError(f"frontend must be one of {FRONTENDS}, "
                          f"got {frontend!r}")
@@ -76,6 +77,8 @@ def _extract_impl(img: torch.Tensor, cfg: OrbConfig, h: int, w: int,
     budgets = level_budgets(cfg)
     scales = pyramid.scale_factors(cfg.n_levels, cfg.scale)
     dev = img.device
+    dense = (frontend_mod.dense_frontend_levels(levels)
+             if frontend == "fused" else None)
 
     xs, lvs, scs, vals, kps_per_level, dims = [], [], [], [], [], []
     angs, blur_pats = [], []
@@ -83,7 +86,7 @@ def _extract_impl(img: torch.Tensor, cfg: OrbConfig, h: int, w: int,
         ch = int(round(h / cfg.scale ** lv))
         cw = int(round(w / cfg.scale ** lv))
         if frontend == "fused":
-            score, blurred, m10, m01 = frontend_mod.dense_frontend(levels[lv])
+            score, blurred, m10, m01 = dense[lv]
             kps = fast.select_from_nms_score(
                 score, (ch, cw), budgets[lv], cell=cfg.cell,
                 k_per_cell=cfg.k_per_cell, min_th=cfg.min_th,
@@ -137,7 +140,7 @@ def _extract_impl(img: torch.Tensor, cfg: OrbConfig, h: int, w: int,
 
 
 def extract(img: torch.Tensor, cfg: OrbConfig = OrbConfig(),
-            frontend: str = "xla") -> FrameFeatures:
+            frontend: str = "fused") -> FrameFeatures:
     """img: [H, W] float32 grayscale in [0, 255], on the device to run on."""
     h, w = img.shape
     return _extract_impl(img, cfg, h, w, frontend)

@@ -1,8 +1,7 @@
-"""Fused dense ORB front end for one pyramid level: the CUDA kernel and its
-plain version.
+"""Fused dense ORB front end: the CUDA kernel and its plain version.
 
-Counterpart of ``ops/pallas_frontend.py`` of the JAX package. One call turns
-a level image [H, W] into four maps of the same shape:
+Counterpart of ``ops/pallas_frontend.py`` of the JAX package. A level image
+[H, W] becomes four maps of the same shape:
 
 * ``score``: FAST-9/16 corner score over the ring ``fast._CIRCLE``, then 3x3
   non-maximum suppression (a pixel keeps its score if it is >= its eight
@@ -12,7 +11,7 @@ a level image [H, W] into four maps of the same shape:
 * ``m10``, ``m01``: intensity-centroid moments of the circular patch of
   radius 15 (rows dv in [-15, 15] with half-widths ``_U_MAX[|dv|]``).
 
-Borders replicate the edge pixel on all four sides (the default front end
+Borders replicate the edge pixel on all four sides (the ``"xla"`` front end
 of ``ops/extractor.py`` wraps around instead; the two agree wherever a
 keypoint can live, ``margin`` >= 16 pixels inside the content). As in the
 JAX kernel, the NMS neighbour in a column outside the image is the score of
@@ -22,12 +21,15 @@ kernel's bit for bit; the moments agree to f32 summation order in the
 interior and differ from it in the outermost 15 columns, where the JAX
 kernel clamps the column coordinate in its weight.
 
-A CPU tensor takes the plain version; a CUDA tensor launches
-``csrc/frontend.cu`` (one block per 32x32 tile) or raises.
+``dense_frontend_levels`` takes all levels of a frame: CPU tensors take the
+plain version level by level; CUDA tensors go to ``csrc/frontend.cu`` in one
+launch (one flat grid of 64x64 tiles over all levels) or raise.
+``dense_frontend`` is its one-level case.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -45,9 +47,10 @@ _U_MAX = np.floor(np.sqrt(np.maximum(
     ).astype(np.int32)
 _TAPS = _gauss_kernel1d(7, 2.0)
 
-# host buffers handed to the C entry (kept alive for the process)
+MAX_LEVELS = 16          # capacity of the kernel's by-value level table
+
+# host buffer handed to the C entry (kept alive for the process)
 _TAPS_C = (ctypes.c_float * 7)(*[float(x) for x in _TAPS])
-_UMAX_C = (ctypes.c_int * 16)(*[int(x) for x in _U_MAX])
 
 
 def _score_plain(img: torch.Tensor) -> torch.Tensor:
@@ -111,22 +114,74 @@ def dense_frontend_plain(img: torch.Tensor):
     return _score_plain(img), _blur_plain(img), m10, m01
 
 
-def dense_frontend(img: torch.Tensor):
-    """The four dense maps of one level: the plain version on the CPU, the
-    kernel on the card."""
-    if img.device.type == "cpu":
-        return dense_frontend_plain(img)
-    if img.device.type != "cuda":
-        raise ValueError(f"dense_frontend: unsupported device {img.device}")
-    native.require(img, "img", torch.float32, 2, img.device)
-    H, W = img.shape
-    if H == 0 or W == 0:
-        raise ValueError("dense_frontend: empty image")
-    score, blur, m10, m01 = (torch.empty_like(img) for _ in range(4))
-    rc = native.lib().slam_dense_frontend(
-        img.data_ptr(), H, W, ctypes.addressof(_TAPS_C),
-        ctypes.addressof(_UMAX_C), score.data_ptr(), blur.data_ptr(),
-        m10.data_ptr(), m01.data_ptr(), native.stream_ptr(img))
+@functools.lru_cache(maxsize=16)
+def _layout(shapes):
+    """Of a frame's level shapes: each level's size and offset in the flat
+    output buffer, the buffer's length, and the heights and widths as the C
+    entry takes them."""
+    sizes = [h * w for h, w in shapes]
+    offsets = [sum(sizes[:k]) for k in range(len(sizes))]
+    ints = ctypes.c_int * len(shapes)
+    return (sizes, offsets, sum(sizes), ints(*[h for h, _ in shapes]),
+            ints(*[w for _, w in shapes]))
+
+
+@functools.cache
+def _check_kernel_umax() -> None:
+    """The kernel has the half-width table as compile-time constants: hold
+    them against ``_U_MAX``, once (a failure is not cached)."""
+    got = (ctypes.c_int * 16)()
+    native.check(native.lib().slam_frontend_umax(ctypes.addressof(got)),
+                 "frontend_umax")
+    want = [int(x) for x in _U_MAX]
+    if list(got) != want:
+        raise RuntimeError(f"csrc/frontend.cu has half-widths {list(got)}, "
+                           f"ops/frontend.py {want}")
+
+
+def dense_frontend_levels(levels):
+    """The four dense maps of every level image of a frame.
+
+    levels: up to ``MAX_LEVELS`` [H, W] float32 tensors on one device.
+    Returns one (score, blur, m10, m01) tuple per level: the plain version
+    on the CPU, one kernel launch for all levels on the card."""
+    levels = list(levels)
+    if not levels:
+        return []
+    dev = levels[0].device
+    if any(l.device != dev for l in levels):
+        raise ValueError("dense_frontend_levels: levels on different devices")
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"dense_frontend_levels: {len(levels)} levels, the "
+                         f"kernel's table holds {MAX_LEVELS}")
+    if dev.type == "cpu":
+        return [dense_frontend_plain(l) for l in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"dense_frontend_levels: unsupported device {dev}")
+    for k, l in enumerate(levels):
+        native.require(l, f"levels[{k}]", torch.float32, 2, dev)
+        if l.numel() == 0:
+            raise ValueError("dense_frontend_levels: empty image")
+    _check_kernel_umax()
+    shapes = tuple((l.shape[0], l.shape[1]) for l in levels)
+    sizes, offsets, total, heights, widths = _layout(shapes)
+    # one allocation: map m of level k is out[m, offset_k : offset_k + H * W]
+    out = torch.empty((4, total), dtype=torch.float32, device=dev)
+    maps = [chunk.view(4, h, w).unbind(0)
+            for chunk, (h, w) in zip(out.split(sizes, dim=1), shapes)]
+    pointers = ctypes.c_void_p * len(levels)
+    base = out.data_ptr()
+    rc = native.lib().slam_dense_frontend_levels(
+        len(levels), pointers(*[l.data_ptr() for l in levels]), heights,
+        widths, *(pointers(*[base + 4 * (m * total + o) for o in offsets])
+                  for m in range(4)),
+        ctypes.addressof(_TAPS_C), native.stream_ptr(levels[0]))
     native.check(rc, "dense_frontend")
     native.launches["dense_frontend"] += 1
-    return score, blur, m10, m01
+    return maps
+
+
+def dense_frontend(img: torch.Tensor):
+    """The four dense maps of one level: the one-level case of
+    ``dense_frontend_levels``."""
+    return dense_frontend_levels([img])[0]

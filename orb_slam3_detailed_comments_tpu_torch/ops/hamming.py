@@ -14,10 +14,15 @@ minimum, ``d2`` the minimum over every column except ``i1``; a row with
 every target gated out returns d1 = d2 = BIG and i1 = 0.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-``csrc/hamming.cu`` or raises.
+``csrc/hamming.cu`` or raises. The kernel gives a warp to each query: lane
+``l`` scans targets ``l, l + 32, ...`` and the lanes merge their triples.
+``lane_best2`` and ``merge_lane_best2`` are that scan and that merge as
+tensor functions, so that the merge's tie rules are tested without a card;
+the wrappers hold ``LANES`` against the kernel's own count.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -25,6 +30,7 @@ import torch
 from .. import native
 
 BIG = 10_000
+LANES = 32               # lanes of the kernel's warp
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)],
                           dtype=torch.int32)
 _CHUNK_PAIRS = 1 << 18   # query x target pairs per block of the plain scan
@@ -66,6 +72,45 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     return d1, i1.to(torch.int32), d2
 
 
+def lane_best2(dist: torch.Tensor, mask: torch.Tensor, lanes: int = LANES):
+    """What the kernel's lanes hold before they merge: lane l has scanned
+    columns l, l + lanes, ... of dist [Q, K] under mask. Returns (d1, i1, d2)
+    as [Q, lanes] int32 with i1 a column of dist; a lane with no admissible
+    column holds (BIG, 0, BIG)."""
+    Q, K = dist.shape
+    n = -(-K // lanes)
+    d = torch.full((Q, n * lanes), BIG, dtype=dist.dtype, device=dist.device)
+    d[:, :K] = torch.where(mask, dist, torch.full_like(dist, BIG))
+    d = d.reshape(Q, n, lanes).transpose(1, 2)               # [Q, lanes, n]
+    step = torch.argmin(d, dim=2, keepdim=True)
+    d1 = torch.gather(d, 2, step)[..., 0]
+    d2 = torch.amin(d.scatter(2, step, BIG), dim=2)
+    i1 = step[..., 0] * lanes + torch.arange(lanes, device=dist.device)
+    i1 = torch.where(d1 < BIG, i1, torch.zeros_like(i1))
+    return d1.to(torch.int32), i1.to(torch.int32), d2.to(torch.int32)
+
+
+def merge_lane_best2(d1: torch.Tensor, i1: torch.Tensor, d2: torch.Tensor):
+    """Per-lane triples [..., L] (L a power of two) -> one triple [...], by
+    the kernel's butterfly: a lane and its partner at distance L/2, L/4, ...
+    keep the lesser (d1, i1) pair in lexicographic order, so i1 stays the
+    first index of the minimum; d2 becomes the least of both d2 and of the
+    loser's d1."""
+    L = d1.shape[-1]
+    if L & (L - 1):
+        raise ValueError(f"merge_lane_best2: {L} lanes, not a power of two")
+    lane = torch.arange(L, device=d1.device)
+    off = L // 2
+    while off:
+        p = lane ^ off
+        e1, j1, e2 = d1[..., p], i1[..., p], d2[..., p]
+        wins = (d1 < e1) | ((d1 == e1) & (i1 <= j1))
+        d2 = torch.minimum(torch.minimum(d2, e2), torch.where(wins, e1, d1))
+        d1, i1 = torch.where(wins, d1, e1), torch.where(wins, i1, j1)
+        off //= 2
+    return d1[..., 0], i1[..., 0], d2[..., 0]
+
+
 def hamming_best2_plain(da, db, vb):
     """da [Q, 8], db [K, 8] int32, vb [K] bool -> (d1, i1, d2) [Q] int32."""
     return masked_best2(hamming_matrix(da, db), vb[None, :])
@@ -82,6 +127,18 @@ def hamming_best2_windowed_plain(da, q_uv, q_lv, q_r, q_lo, q_hi, qv,
     ok = ((du <= r) & (dv <= r) & (dl >= q_lo[:, None]) & (dl <= q_hi[:, None])
           & tv[None, :] & qv[:, None])
     return masked_best2(hamming_matrix(da, db), ok)
+
+
+@functools.cache
+def _check_kernel_lanes() -> None:
+    """The kernel's lanes per query against ``LANES``, once (a failure is
+    not cached)."""
+    got = ctypes.c_int()
+    native.check(native.lib().slam_best2_lanes(ctypes.addressof(got)),
+                 "best2_lanes")
+    if got.value != LANES:
+        raise RuntimeError(f"csrc/hamming.cu gives a query {got.value} "
+                           f"lanes, ops/hamming.py {LANES}")
 
 
 def _out3(Q: int, device):
@@ -103,6 +160,7 @@ def hamming_best2(da, db, vb):
     if da.shape[1] != 8 or db.shape[1] != 8 or vb.shape[0] != K or K == 0:
         raise ValueError("hamming_best2: expected da [Q, 8], db [K, 8], "
                          "vb [K] with K > 0")
+    _check_kernel_lanes()
     d1, i1, d2 = _out3(Q, dev)
     rc = native.lib().slam_hamming_best2(
         da.data_ptr(), Q, db.data_ptr(), vb.data_ptr(), K, d1.data_ptr(),
@@ -141,6 +199,7 @@ def hamming_best2_windowed(da, q_uv, q_lv, q_r, q_lo, q_hi, qv,
             or any(t.shape[0] != Q for t in (q_lv, q_r, q_lo, q_hi, qv))
             or any(t.shape[0] != K for t in (t_lv, tv))):
         raise ValueError("hamming_best2_windowed: inconsistent shapes")
+    _check_kernel_lanes()
     d1, i1, d2 = _out3(Q, dev)
     rc = native.lib().slam_hamming_best2_windowed(
         da.data_ptr(), q_uv.data_ptr(), q_lv.data_ptr(), q_r.data_ptr(),

@@ -33,7 +33,7 @@ class PreparedFrame(NamedTuple):
 
 def prepare_frame(img: torch.Tensor, cam: cameras.CameraParams,
                   cfg: extractor.OrbConfig,
-                  frontend: str = "xla") -> PreparedFrame:
+                  frontend: str = "fused") -> PreparedFrame:
     """ORB extraction + undistortion (reference: Frame ctor,
     Frame.cc:513,1003). Runs on img's device."""
     feat = extractor.extract(img, cfg, frontend)

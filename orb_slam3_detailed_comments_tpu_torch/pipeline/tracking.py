@@ -56,7 +56,7 @@ class TrackingConfig:
     min_inliers_mm: int = 20
     min_inliers_local: int = 30
     recently_lost_frames: int = 100
-    frontend: str = "xla"         # extractor front end: "xla" or "fused"
+    frontend: str = "fused"       # extractor front end: "fused" or "xla"
 
 
 @dataclass

@@ -8,7 +8,8 @@ with the card has no JAX, so run them without the suite's conftest:
 
 Tolerance: exact equality of values and indices, at the shapes of the
 752x480, 1024-feature main path plus constructed ties and gated rows, and
-for the best-2 searches also at a shape that is no multiple of 128.
+for the best-2 searches also from 1 x 1 to 64 x 5000 with ties planted
+across and within the kernel's lanes (``chip_smoke.tie_case``).
 ``dense_frontend``: score and blur exactly equal, each moment map within
 5.0 absolute (moments of order 1e5 summed in another order).
 """
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from orb_slam3_detailed_comments_tpu_torch import native
 from orb_slam3_detailed_comments_tpu_torch.ops import (
     frontend, hamming, patches, pyramid, topk)
@@ -120,6 +122,48 @@ def test_best2_kernel_equals_plain(dev, rng, Q, K):
     assert bool((out[0] == hamming.BIG).all()) and bool((out[1] == 0).all())
 
 
+@pytest.mark.parametrize("Q,K", chip_smoke.TIE_SHAPES)
+def test_best2_kernels_equal_plain_on_ties(dev, rng, Q, K):
+    """Both searches where a lane merge could go wrong: equal minima in
+    neighbouring lanes, in one lane's successive steps, two equal best, a
+    row with every target gated out, a row whose only target is the last."""
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = chip_smoke.tie_case(rng, Q, K, f)
+    before = dict(native.launches)
+    out = hamming.hamming_best2_windowed(*args)
+    ref = hamming.hamming_best2_windowed_plain(*args)
+    for a, b in zip(out, ref):
+        _same(a, b)
+    if Q > 4 and K > 100:
+        assert int(out[0][0]) == 0 == int(out[2][0])          # a tie at 0
+        assert int(out[0][2]) == 8 == int(out[2][2])          # two equal best
+        assert (int(out[0][3]), int(out[1][3])) == (hamming.BIG, 0)
+        assert (int(out[1][4]), int(out[2][4])) == (K - 1, hamming.BIG)
+    plain_args = (args[0], args[7], args[10])
+    for a, b in zip(hamming.hamming_best2(*plain_args),
+                    hamming.hamming_best2_plain(*plain_args)):
+        _same(a, b)
+    assert native.launches["hamming_best2_windowed"] == \
+        before["hamming_best2_windowed"] + 1
+    assert native.launches["hamming_best2"] == before["hamming_best2"] + 1
+
+
+def test_best2_kernel_takes_a_misaligned_descriptor_view(dev, rng):
+    """Descriptors that start 4 bytes into an allocation: the kernel stages
+    them with scalar loads instead of 16-byte ones."""
+    K = 300
+    flat = torch.from_numpy(rng.integers(
+        0, 2 ** 32, K * 8 + 1, dtype=np.uint64).astype(np.uint32).view(
+            np.int32)).to(dev)
+    db = flat[1:].view(K, 8)
+    assert db.data_ptr() % 16 != 0 and db.is_contiguous()
+    da = _desc(rng, 40, dev)
+    vb = torch.ones(K, dtype=torch.bool, device=dev)
+    for a, b in zip(hamming.hamming_best2(da, db, vb),
+                    hamming.hamming_best2_plain(da, db, vb)):
+        _same(a, b)
+
+
 def test_matching_launches_the_kernels_at_any_shape(dev, rng):
     """match_nn and search_by_projection on card tensors launch the best-2
     kernels whatever Q and K are (no shape falls back to a dense search)."""
@@ -158,6 +202,58 @@ def test_dense_frontend_kernel_equals_plain(dev, rng, shape):
         assert float((g - r).abs().max()) < 5.0
 
 
+@pytest.mark.parametrize("axis,at", [(1, 40), (0, 20), (1, 95), (0, 33)])
+def test_dense_frontend_kernel_equals_plain_on_a_step_edge(dev, axis, at):
+    """Halves of 0 and 255 with the edge off the 64-pixel tiles' centres:
+    the moments' conditioning constant (a tile's centre pixel) is then 255
+    away from the pixels on the edge's other side."""
+    img = torch.zeros((96, 160), device=dev)
+    img.narrow(axis, at, img.shape[axis] - at).fill_(255.0)
+    for x in (img, 255.0 - img):
+        got = frontend.dense_frontend(x)
+        ref = frontend.dense_frontend_plain(x)
+        _same(got[0], ref[0])
+        _same(got[1], ref[1])
+        for g, r in zip(got[2:], ref[2:]):
+            assert float((g - r).abs().max()) < 5.0
+
+
+def _level_like(rng, shape, dev):
+    img = np.round(rng.uniform(0, 255, shape)).astype(np.float32)
+    img[: shape[0] // 2, : shape[1] // 3] = 40.0        # a flat region
+    return torch.from_numpy(img).to(dev)
+
+
+def test_dense_frontend_levels_kernel_equals_plain(dev, rng):
+    """All levels of a 752x480 frame and four shapes below one tile in one
+    launch, each level against the plain version."""
+    shapes = pyramid.level_shapes(480, 752) + [(37, 53), (33, 64), (64, 31),
+                                               (8, 200)]
+    levels = [_level_like(rng, s, dev) for s in shapes]
+    before = native.launches["dense_frontend"]
+    out = frontend.dense_frontend_levels(levels)
+    assert native.launches["dense_frontend"] == before + 1
+    assert len(out) == len(levels)
+    for lvl, got in zip(levels, out):
+        ref = frontend.dense_frontend_plain(lvl)
+        _same(got[0], ref[0])
+        _same(got[1], ref[1])
+        for g, r in zip(got[2:], ref[2:]):
+            assert g.shape == lvl.shape and g.is_contiguous()
+            assert float((g - r).abs().max()) < 5.0
+
+
+def test_dense_frontend_levels_raises_on_17_levels(dev):
+    lv = [torch.zeros((8, 8), device=dev) for _ in range(17)]
+    before = native.launches["dense_frontend"]
+    with pytest.raises(ValueError, match="levels"):
+        frontend.dense_frontend_levels(lv)
+    with pytest.raises(ValueError, match="devices"):
+        frontend.dense_frontend_levels([lv[0], lv[1].cpu()])
+    assert native.launches["dense_frontend"] == before
+    assert len(frontend.dense_frontend_levels(lv[:16])) == 16
+
+
 def test_dense_frontend_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         frontend.dense_frontend(torch.zeros((8, 8), dtype=torch.float64,
@@ -173,10 +269,11 @@ def test_fused_extractor_launches_the_kernel_once_per_level(dev, rng):
     img = torch.from_numpy(np.round(rng.uniform(0, 255, (480, 752))).astype(
         np.float32)).to(dev)
     before = dict(native.launches)
-    f = extractor.extract(img, extractor.OrbConfig(), "fused")
-    assert native.launches["dense_frontend"] == before["dense_frontend"] + 8
+    f = extractor.extract(img, extractor.OrbConfig())
+    # one launch for all 8 levels; the patch gathers stay one a level
+    assert native.launches["dense_frontend"] == before["dense_frontend"] + 1
     assert native.launches["gather_patches"] == before["gather_patches"] + 8
-    g = extractor.extract(img.cpu(), extractor.OrbConfig(), "fused")
+    g = extractor.extract(img.cpu(), extractor.OrbConfig())
     torch.cuda.synchronize()
     same = ((f.xy.cpu() == g.xy).all(1) & (f.valid.cpu() == g.valid))
     assert float(same.float().mean()) >= 0.995

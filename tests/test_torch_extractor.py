@@ -1,4 +1,6 @@
-"""The port's ORB extractor against the JAX package's, on rendered frames.
+"""The port's ORB extractor against the JAX package's, on rendered frames,
+both on the ``"xla"`` front end (JAX's default path; the port's default,
+``"fused"``, is held to JAX's fused path in ``tests/test_torch_frontend.py``).
 
 Exact where the arithmetic is exact: FAST scores and NMS (min/max), the
 rBRIEF pattern and its rotated tables, the descriptor of given patches and
@@ -97,7 +99,7 @@ def test_extract_matches_jax(frames, which):
     cfg_j = jext.OrbConfig(n_features=512)
     assert tuple(cfg_t) == tuple(cfg_j)
     img = frames[which]
-    f_t = extractor.extract(torch.from_numpy(img), cfg_t)
+    f_t = extractor.extract(torch.from_numpy(img), cfg_t, frontend="xla")
     f_j = jext._extract_impl(jnp.asarray(img), cfg_j, *img.shape,
                              frontend="xla")
     same = ((f_t.xy.numpy() == np.asarray(f_j.xy)).all(1)

@@ -136,9 +136,8 @@ def extracted():
     cfg = dict(n_features=256, n_levels=4)
     f_j = jext._extract_impl(jnp.asarray(img), jext.OrbConfig(**cfg), 240,
                              320, frontend="pallas_interpret")
-    f_t = extractor._extract_impl(torch.from_numpy(img),
-                                  extractor.OrbConfig(**cfg), 240, 320,
-                                  frontend="fused")
+    # the port's default front end is the fused one
+    f_t = extractor.extract(torch.from_numpy(img), extractor.OrbConfig(**cfg))
     f_x = extractor._extract_impl(torch.from_numpy(img),
                                   extractor.OrbConfig(**cfg), 240, 320,
                                   frontend="xla")
@@ -162,7 +161,8 @@ def test_fused_extractor_matches_jax(extracted):
 
 
 def test_fused_and_default_front_ends_agree(extracted):
-    """Inside the port the two front ends select the same keypoints; angles
+    """Inside the port the fused front end (the default) and the ``"xla"``
+    one (the default of the JAX package) select the same keypoints; angles
     within 1e-3 rad, >= 97 % of descriptors equal."""
     _, f_t, f_x = extracted
     np.testing.assert_array_equal(f_t.valid.numpy(), f_x.valid.numpy())
@@ -175,6 +175,61 @@ def test_fused_and_default_front_ends_agree(extracted):
     assert (f_t.desc.numpy()[v] == f_x.desc.numpy()[v]).all(1).mean() >= 0.97
 
 
+def test_default_front_end_is_the_fused_one():
+    import inspect
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        kernels, tracking)
+    assert extractor.FRONTENDS[0] == "fused"
+    for fn in (extractor.extract, extractor._extract_impl,
+               kernels.prepare_frame):
+        assert inspect.signature(fn).parameters["frontend"].default == "fused"
+    assert tracking.TrackingConfig().frontend == "fused"
+
+
+def test_levels_entry_equals_plain_per_level():
+    """``dense_frontend_levels`` on the CPU is the plain version level by
+    level, on the level shapes of a 120x160 frame (none a multiple of the
+    kernel's 64-pixel tile) and in the order given."""
+    img = torch.from_numpy(synth_image(np.random.default_rng(15), 120, 160))
+    levels = pyramid.build_pyramid(img, 4, 1.2)
+    out = frontend.dense_frontend_levels(levels)
+    assert len(out) == 4
+    for lvl, maps in zip(levels, out):
+        ref = frontend.dense_frontend_plain(lvl)
+        assert len(maps) == 4
+        for g, r in zip(maps, ref):
+            assert g.shape == lvl.shape
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+    one = frontend.dense_frontend(levels[2])
+    for g, r in zip(one, out[2]):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    assert frontend.dense_frontend_levels([]) == []
+
+
+def test_levels_entry_rejects_what_the_kernel_does_not_take():
+    """More levels than the kernel's table holds raise on any device."""
+    lv = [torch.zeros((8, 8)) for _ in range(frontend.MAX_LEVELS + 1)]
+    with pytest.raises(ValueError, match="levels"):
+        frontend.dense_frontend_levels(lv)
+    assert len(frontend.dense_frontend_levels(lv[:-1])) == frontend.MAX_LEVELS
+    with pytest.raises(ValueError, match="devices"):
+        frontend.dense_frontend_levels(
+            [torch.zeros((8, 8)), torch.zeros((8, 8), device="meta")])
+
+
+def test_fused_extractor_calls_the_levels_entry_once(monkeypatch):
+    calls = []
+    real = frontend.dense_frontend_levels
+    monkeypatch.setattr(frontend, "dense_frontend_levels",
+                        lambda lv: calls.append(len(lv)) or real(lv))
+    img = torch.from_numpy(synth_image(np.random.default_rng(16), 120, 160))
+    extractor.extract(img, extractor.OrbConfig(n_features=128, n_levels=3))
+    assert calls == [3]
+    extractor.extract(img, extractor.OrbConfig(n_features=128, n_levels=3),
+                      "xla")
+    assert calls == [3]
+
+
 def test_unknown_front_end_raises():
     with pytest.raises(ValueError, match="frontend"):
         extractor.extract(torch.zeros((64, 64)), frontend="pallas")
@@ -182,11 +237,11 @@ def test_unknown_front_end_raises():
 
 def test_level_shapes_are_the_kernel_shapes():
     """The fused front end is called on the padded level shapes; most
-    widths are no multiple of the kernel's 32-pixel tile."""
+    widths are no multiple of the kernel's 64-pixel tile."""
     shapes = pyramid.level_shapes(480, 752)
     assert shapes[0] == (480, 752) and len(shapes) == 8
-    assert sum(w % 32 != 0 for _, w in shapes) >= 5
+    assert sum(w % 64 != 0 for _, w in shapes) >= 5
     assert list(frontend._U_MAX) == list(jbrief._U_MAX)
-    # the 709 taps that the kernel's operation count rests on
+    # the 709 taps of the circular patch
     assert sum(2 * int(frontend._U_MAX[abs(d)]) + 1
                for d in range(-15, 16)) == 709

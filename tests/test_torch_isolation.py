@@ -66,12 +66,11 @@ def test_launch_counters_stay_zero_on_cpu():
     img = torch.from_numpy(rng.uniform(0, 255, (240, 376)).astype(np.float32))
     prep = kernels.prepare_frame(img, cameras.pinhole(229.0, 228.5, 188.0,
                                                       120.0, 376, 240),
-                                 extractor.OrbConfig(n_features=256))
+                                 extractor.OrbConfig(n_features=256), "xla")
     assert prep.feat.desc.shape == (256, 8)
     fused = kernels.prepare_frame(img, cameras.pinhole(229.0, 228.5, 188.0,
                                                        120.0, 376, 240),
-                                  extractor.OrbConfig(n_features=256),
-                                  "fused")
+                                  extractor.OrbConfig(n_features=256))
     assert fused.feat.desc.shape == (256, 8)
     assert native.launches == {k: 0 for k in native.launches}
     assert set(native.launches) == {"cell_topk", "gather_patches",
