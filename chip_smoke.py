@@ -12,8 +12,11 @@ Phases, each of which raises on failure:
      absolute tolerance); the best-2 searches also at shapes from 1 x 1 to
      64 x 5000 with ties planted across and within the kernel's lanes;
      dense_frontend both level by level and as the frame's one call for all
-     levels; gather_patches both at the atlas shapes of the "xla" front end
-     and at the per-level shapes of the fused one. Timed as device time
+     levels; cell_topk and gather_patches as the frame's one call over the 8
+     levels (all-zero, tied, negative and -inf cells, content edges, corners
+     outside the image), over tables of 1 and 16 levels, refusing 17, and
+     in their one-level cases (the [C, 1024] matrix; the "xla" front end's
+     atlas). Timed as device time
      (torch.profiler, the "ms" of the JSON record) and with CUDA events
      around the host's calls (launch gaps included), beside the plain
      version, a PyTorch library call where one computes the same function,
@@ -100,34 +103,69 @@ def cuda_ms(fn, reps=30, warm=3):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=20, warm=3):
+# timings for which every profiler session saw no kernel, so that "ms" is
+# a CUDA-event time instead: named in the JSON record
+EVENT_FALLBACKS = []
+
+
+def profiled(run, activities, setup=lambda: None, tries=3):
+    """torch.profiler's key averages over run(setup()) (run must
+    synchronize; setup runs outside the profiler), profiled again, up to
+    tries sessions, while the device's records hold no kernel time: one
+    session of the many in a process can lose its CUDA activity records.
+    None if every session saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    for attempt in range(tries):
+        state = setup()
+        with profile(activities=activities) as prof:
+            run(state)
+        avg = prof.key_averages()
+        if sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) > 0:
+            return avg
+        log(f"  the profiler saw no kernel (session {attempt + 1} of "
+            f"{tries})")
+    return None
+
+
+def device_ms(fn, reps=20, warm=3, what="a timed call"):
     """Milliseconds of device time per fn() call: the durations of the
     kernels it launched, from torch.profiler, without the host's launch
-    gaps that CUDA events around a host-bound call also count."""
+    gaps that CUDA events around a host-bound call also count. If no
+    profiler session sees a kernel, the CUDA-event time instead, logged
+    and listed in EVENT_FALLBACKS."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run(_):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler saw no kernel of a timed call")
-    return total_us / 1e3 / reps
+
+    avg = profiled(run, [ProfilerActivity.CUDA])
+    if avg is None:
+        log(f"  {what}: CUDA-event time in place of device time")
+        EVENT_FALLBACKS.append(what)
+        return cuda_ms(fn, reps=reps, warm=0)
+    return sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def timed(rec, kernel, plain, library=None, plain_reps=20):
     """Device time (ms, plain_ms, library_ms) and CUDA-event time
     (event_ms, plain_event_ms) of one frame's calls."""
-    rec.update(ms=device_ms(kernel), event_ms=cuda_ms(kernel),
-               plain_ms=device_ms(plain, reps=plain_reps),
+    name = rec["name"]
+    rec.update(ms=device_ms(kernel, what=name), event_ms=cuda_ms(kernel),
+               plain_ms=device_ms(plain, reps=plain_reps,
+                                  what=f"{name}, plain"),
                plain_event_ms=cuda_ms(plain, reps=plain_reps),
-               library_ms=None if library is None else device_ms(library))
+               library_ms=None if library is None else device_ms(
+                   library, what=f"{name}, library"))
     return rec
 
 
@@ -164,7 +202,7 @@ def kernel_phase(dev, rates):
     and the best-2 searches also at a shape that is no multiple of 128."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.ops import (
-        brief, extractor, hamming, patches, pyramid, topk)
+        brief, extractor, hamming, layout, patches, pyramid, topk)
     rng = np.random.default_rng(0)
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     H, W = CAM_KW["height"], CAM_KW["width"]
@@ -183,9 +221,21 @@ def kernel_phase(dev, rates):
             err = max(err, float((g.double() - r.double()).abs().max()))
         return err
 
-    # 1. cell_topk: one [C_l, 1024] call per pyramid level
-    cells = []
-    for lh, lw in shapes:
+    # 1. cell_topk: the frame's one launch over the 8 levels' score maps
+    k, margin = orb.k_per_cell, orb.margin
+    contents = layout.content_dims(orb, H, W)
+    maps = score_maps_case(rng, shapes, f)
+    sel = lambda m, c: topk.cell_topk_levels(m, c, margin, k)
+    sel_plain = lambda m, c: topk.cell_topk_levels_plain(m, c, margin, k)
+    err = same("cell_topk (the frame's 8 levels)", sel(maps, contents),
+               sel_plain(maps, contents))
+    for m, c in ((maps[-1:], contents[-1:]), (maps * 2, contents * 2)):
+        err = max(err, same(f"cell_topk ({len(m)} levels)", sel(m, c),
+                            sel_plain(m, c)))
+    must_raise("cell_topk (17 levels)",
+               lambda: sel(maps * 2 + maps[:1], contents * 2 + contents[:1]))
+    # ... and the matrix entry, the one-level case on a [C, 1024] matrix
+    for lh, lw in shapes[::3]:
         C = ((lh + 31) // 32) * ((lw + 31) // 32)
         x = np.where(rng.uniform(size=(C, 1024)) < 0.08,
                      rng.integers(7, 100, (C, 1024)), 0).astype(np.float32)
@@ -194,74 +244,97 @@ def kernel_phase(dev, rates):
         x[2, :] = -np.inf                               # padding row
         x[3, :] = -np.inf
         x[3, [9, 600]] = 8.0                            # < k finite values
-        cells.append(f(x))
-    k = orb.k_per_cell
-    err = max(same("cell_topk", topk.cell_topk(c, k), topk.cell_topk_plain(c, k))
-              for c in cells)
-    n_rows = sum(c.shape[0] for c in cells)
-    b, by = bound_ms(n_rows * 1024 * 4 + n_rows * k * 8, n_rows * 1024 * k)
+        err = max(err, same(f"cell_topk ([{C}, 1024] matrix)",
+                            topk.cell_topk(f(x), k),
+                            topk.cell_topk_plain(f(x), k)))
+    # the least work: read the pixels inside the masks (the rest are 0 by
+    # definition), one compare each, and write the cells' top-k
+    n_in = sum(max(0, min(lh, ch - margin) - margin)
+               * max(0, min(lw, cw - margin) - margin)
+               for (lh, lw), (ch, cw) in zip(shapes, contents))
+    n_px = sum(lh * lw for lh, lw in shapes)
+    n_rows = sel(maps, contents)[0].shape[0]
+    cells = torch.cat([topk.level_cells(m, c, margin)
+                       for m, c in zip(maps, contents)])
+    b, by = bound_ms(n_in * 4 + n_rows * k * 8, n_in)
     rec.append(timed(dict(
         name="cell_topk", route="cuda", source=f"{PKG}/csrc/topk.cu",
         replaces="orb_slam3_detailed_comments_tpu/ops/pallas_topk.py:36",
         max_abs_err=err, bound_ms=b, bound_by=by,
-        unit=f"one frame: 8 calls, {n_rows} rows x 1024"),
-        lambda: [topk.cell_topk(c, k) for c in cells],
-        lambda: [topk.cell_topk_plain(c, k) for c in cells],
-        lambda: [torch.topk(c, k, dim=1) for c in cells]))
+        unit=f"one frame: 1 call, {len(shapes)} levels, {n_rows} cells of "
+             f"32x32 from {n_in} masked-in pixels of {n_px} in the score "
+             f"maps"),
+        lambda: sel(maps, contents), lambda: sel_plain(maps, contents),
+        lambda: torch.topk(cells, k, dim=1)))
 
-    # 2. gather_patches: 31x31 raw and 37x37 blurred patches of 1024 features
-    levels = [f(rng.uniform(0, 255, s).astype(np.float32)) for s in shapes]
-    atlas, offs = patches.build_atlas(levels, W)
-    budgets = extractor.level_budgets(orb)
-    calls = []
-    for ph in (31, 37):
-        rc = np.concatenate([np.stack(
-            [rng.integers(0, s[0] - ph, n) + o, rng.integers(0, s[1] - ph, n)], 1)
-            for s, o, n in zip(shapes, offs, budgets)]).astype(np.int32)
-        rc[:2] = [[-4, -9], [atlas.shape[0] - 2, atlas.shape[1] - 1]]
-        calls.append((f(rc), ph))
-    err = max(same("gather_patches", [patches.gather_patches(atlas, rc, ph)],
-                   [patches.gather_patches_plain(atlas, rc, ph)])
-              for rc, ph in calls)
-    nbytes = sum(rc.numel() * 4 + 2 * rc.shape[0] * ph * ph * 4
-                 for rc, ph in calls)
-    b, by = bound_ms(nbytes, 0)
+    # 2. gather_patches: the frame's one launch, 1024 37x37 windows from the
+    # 8 blur maps at patch_corners' corners, some moved outside the image
+    blurs = [f(np.round(rng.uniform(0, 255, s)).astype(np.float32))
+             for s in shapes]
+    budgets = layout.level_budgets(orb)
+    level, rc = corners_case(rng, shapes, contents, budgets, f)
+    pw = brief.PATCH_W
+    gat = lambda im, lv, r: patches.gather_patches_levels(im, lv, r, pw)
+    gat_plain = lambda im, lv, r: patches.gather_patches_levels_plain(
+        im, lv, r, pw)
+    err = same("gather_patches (the frame's 8 levels)",
+               [gat(blurs, level, rc)], [gat_plain(blurs, level, rc)])
+    for im, lv in ((blurs[:1], torch.zeros_like(level)),
+                   (blurs * 2, level + 8 * (torch.arange(
+                       level.shape[0], device=dev) % 2).to(torch.int32))):
+        err = max(err, same(f"gather_patches ({len(im)} images)",
+                            [gat(im, lv, rc)], [gat_plain(im, lv, rc)]))
+    must_raise("gather_patches (17 images)",
+               lambda: gat(blurs * 2 + blurs[:1], level, rc))
+    # the library call: each level's patches as one index of the level's
+    # windows view, at the corners the kernel computes
+    starts = patch_starts(shapes, budgets, rc, pw)
+    windows = [(im.unfold(0, pw, 1).unfold(1, pw, 1), r0, c0)
+               for im, (r0, c0) in zip(blurs, starts)]
+    library = lambda: [v[r0, c0] for v, r0, c0 in windows]
+    same("gather_patches' library call", [torch.cat(library())],
+         [gat_plain(blurs, level, rc)])
+    # the least work: read the union of the windows (overlapping windows
+    # share pixels) and the corners, write every window
+    n_feat = level.shape[0]
+    n_cov = covered_pixels(shapes, starts, pw)
+    b, by = bound_ms(n_feat * 12 + n_cov * 4 + n_feat * pw * pw * 4, 0)
     rec.append(timed(dict(
         name="gather_patches", route="cuda", source=f"{PKG}/csrc/patches.cu",
         replaces="orb_slam3_detailed_comments_tpu/ops/pallas_patches.py:50",
         max_abs_err=err, bound_ms=b, bound_by=by,
-        unit=f"one frame: 2 calls, {n_feat} patches of 31x31 and 37x37 "
-             f"from a {tuple(atlas.shape)} atlas"),
-        lambda: [patches.gather_patches(atlas, rc, ph) for rc, ph in calls],
-        lambda: [patches.gather_patches_plain(atlas, rc, ph)
-                 for rc, ph in calls]))
-    # ... and as the fused front end calls it (brief.extract_patches): 8
-    # calls a frame, each level image as its own atlas, the level's budget
-    # of 37x37 windows at patch_corners' corners, two of them moved outside
-    pw = brief.PATCH_W
-    lcalls = []
-    for lv, (lvl, n) in enumerate(zip(levels, budgets)):
-        ch, cw = (int(round(d / orb.scale ** lv)) for d in (H, W))
-        yx = np.stack([rng.integers(0, ch, n), rng.integers(0, cw, n)], 1)
-        rc = brief.patch_corners(f(yx.astype(np.int32)), brief.PATCH_R,
-                                 (ch, cw))
-        rc[:2] = f(np.array([[-4, -9], [lvl.shape[0] - 2, lvl.shape[1] - 1]],
-                            np.int32))
-        lcalls.append((lvl, rc))
-    err_l = max(same("gather_patches (per level)",
-                     [patches.gather_patches(lvl, rc, pw)],
-                     [patches.gather_patches_plain(lvl, rc, pw)])
-                for lvl, rc in lcalls)
-    rec[-1]["max_abs_err"] = max(err, err_l)
-    b, by = bound_ms(sum(rc.numel() * 4 + 2 * rc.shape[0] * pw * pw * 4
-                         for _, rc in lcalls), 0)
-    rec[-1]["per_level"] = timed(dict(
-        max_abs_err=err_l, bound_ms=b, bound_by=by,
-        unit=f"one frame on the fused front end: 8 calls, {sum(budgets)} "
-             f"patches of {pw}x{pw}, each from its level image"),
-        lambda: [patches.gather_patches(lvl, rc, pw) for lvl, rc in lcalls],
-        lambda: [patches.gather_patches_plain(lvl, rc, pw)
-                 for lvl, rc in lcalls])
+        unit=f"one frame on the fused front end: 1 call, {n_feat} patches "
+             f"of {pw}x{pw} covering {n_cov} pixels of {len(shapes)} blur "
+             f"maps"),
+        lambda: gat(blurs, level, rc), lambda: gat_plain(blurs, level, rc),
+        library))
+    # ... and the atlas, the one-image case of the "xla" front end: 31x31
+    # raw and 37x37 blurred patches of 1024 features
+    atlas, offs = patches.build_atlas(blurs, W)
+    calls = []
+    for ph in (31, 37):
+        rca = np.concatenate([np.stack(
+            [rng.integers(0, s[0] - ph, n) + o, rng.integers(0, s[1] - ph, n)], 1)
+            for s, o, n in zip(shapes, offs, budgets)]).astype(np.int32)
+        rca[:2] = [[-4, -9], [atlas.shape[0] - 2, atlas.shape[1] - 1]]
+        calls.append((f(rca), ph))
+    err_a = max(same("gather_patches (atlas)",
+                     [patches.gather_patches(atlas, r, ph)],
+                     [patches.gather_patches_plain(atlas, r, ph)])
+                for r, ph in calls)
+    rec[-1]["max_abs_err"] = max(err, err_a)
+    b, by = bound_ms(sum(
+        r.numel() * 4 + r.shape[0] * ph * ph * 4 + 4 * covered_pixels(
+            [tuple(atlas.shape)], patch_starts([tuple(atlas.shape)],
+                                               [r.shape[0]], r, ph), ph)
+        for r, ph in calls), 0)
+    rec[-1]["atlas"] = dict(max_abs_err=err_a, bound_ms=b, bound_by=by,
+                            unit=f"one frame on the \"xla\" front end: 2 "
+                                 f"calls, {n_feat} patches of 31x31 and 37x37 "
+                                 f"from a {tuple(atlas.shape)} atlas",
+                            ms=device_ms(lambda: [patches.gather_patches(
+                                atlas, r, ph) for r, ph in calls],
+                                what="gather_patches, atlas"))
 
     # 3. hamming_best2_windowed: stage 1 (Q=1024) and stage 2 (Q=4096)
     sf = 1.2 ** np.arange(8)
@@ -360,7 +433,8 @@ def kernel_phase(dev, rates):
         lambda: [hamming.hamming_best2(*args), hamming.hamming_best2(*back)],
         lambda: [hamming.hamming_best2_plain(*args),
                  hamming.hamming_best2_plain(*back)], plain_reps=5))
-    rec[-1]["one_call_ms"] = device_ms(lambda: hamming.hamming_best2(*args))
+    rec[-1]["one_call_ms"] = device_ms(lambda: hamming.hamming_best2(*args),
+                                       what="hamming_best2, one call")
     rec.append(frontend_kernel_check(dev))
     for r in rec:
         held = ("equal to plain" if r["max_abs_err"] == 0 else
@@ -373,14 +447,93 @@ def kernel_phase(dev, rates):
         if "one_call_ms" in r:
             log(f"  {r['name']}, one 1024x1024 call: device "
                 f"{r['one_call_ms']:.4f} ms")
-        if "per_level" in r:
-            q = r["per_level"]
-            log(f"  {r['name']} per level: equal to plain; device "
-                f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, bound "
-                f"{q['bound_ms']:.5f} by {q['bound_by']}); CUDA events "
-                f"{q['event_ms']:.4f} ms (plain {q['plain_event_ms']:.4f}) "
-                f"per {q['unit']}")
+        if "atlas" in r:
+            q = r["atlas"]
+            log(f"  {r['name']} on an atlas: equal to plain; device "
+                f"{q['ms']:.4f} ms (bound {q['bound_ms']:.5f} by "
+                f"{q['bound_by']}) per {q['unit']}")
     return rec
+
+
+def must_raise(name, fn):
+    """fn must refuse its arguments with a ValueError, before any launch."""
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{name}: no error raised")
+
+
+def score_maps_case(rng, shapes, f):
+    """NMS-like score maps of the given level shapes with negative scores
+    (NMS keeps them) and scores in the last row and column, past every
+    level's content, which the mask must zero. Level 0's cells (1, 1) ..
+    (1, 4) and (2, 1), inside its mask: three tied maxima; negative scores
+    with two tied maxima; -inf but for three values; all -inf; all zero.
+    The last level is all negative."""
+    maps = []
+    for h, w in shapes:
+        s = np.where(rng.uniform(size=(h, w)) < 0.08,
+                     rng.integers(1, 120, (h, w)), 0).astype(np.float32)
+        neg = rng.uniform(size=(h, w)) < 0.03
+        s[neg] = -rng.integers(1, 60, int(neg.sum())).astype(np.float32)
+        s[:, -1] = 90.0
+        s[h - 1, :] = 91.0
+        maps.append(s)
+    s = maps[0]
+    s[32:64, 32:64] = 0.0
+    s[40, 40] = s[40, 50] = s[41, 33] = 77.0
+    s[32:64, 64:96] = -rng.integers(2, 60, (32, 32)).astype(np.float32)
+    s[35, 70] = s[60, 66] = -1.0
+    s[32:64, 96:160] = -np.inf
+    s[[33, 50, 63], [97, 120, 96]] = [12.0, 12.0, -3.0]
+    s[64:96, 32:64] = 0.0
+    maps[-1] = -np.abs(maps[-1]) - 1.0
+    return [f(m) for m in maps]
+
+
+def corners_case(rng, shapes, contents, budgets, f):
+    """(level [N] int32, rc [N, 2] int32), level-major: each level's budget
+    of 37x37 patch corners as the extractor computes them
+    (brief.patch_corners on keypoints in and around the image), and in each
+    level two raw corners outside the image, one negative (counted from
+    the far end) and one past it (clamped)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import brief
+    rcs, lvs = [], []
+    for lv, ((h, w), c, n) in enumerate(zip(shapes, contents, budgets)):
+        yx = np.stack([rng.integers(-5, h + 5, n),
+                       rng.integers(-5, w + 5, n)], 1).astype(np.int32)
+        rc = brief.patch_corners(f(yx), brief.PATCH_R, c)
+        rc[:2] = f(np.array([[-4, -9], [h - 2, w - 1]], np.int32))
+        rcs.append(rc)
+        lvs.append(np.full(n, lv, np.int32))
+    return f(np.concatenate(lvs)), torch.cat(rcs)
+
+
+def patch_starts(shapes, budgets, rc, pw):
+    """Each level's window starts (r0, c0) of its keypoints' corners, by
+    lax.dynamic_slice's rule: the corners the kernel reads at."""
+    import torch
+    out = []
+    for (h, w), r in zip(shapes, rc.long().split(budgets)):
+        out.append(tuple(
+            torch.clamp(torch.where(x < 0, x + d, x), 0, d - pw)
+            for x, d in ((r[:, 0], h), (r[:, 1], w))))
+    return out
+
+
+def covered_pixels(shapes, starts, p):
+    """Pixels of the images that at least one p x p window covers, the
+    windows at the (r0, c0) starts of patch_starts: the least the gather
+    must read."""
+    n = 0
+    for (h, w), (r0, c0) in zip(shapes, starts):
+        cov = np.zeros((h, w), bool)
+        for r, c in zip(r0.tolist(), c0.tolist()):
+            cov[r:r + p, c:c + p] = True
+        n += int(cov.sum())
+    return n
 
 
 # shapes at which both best-2 searches are held with planted ties: one
@@ -596,6 +749,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         f"frames), {m.n_points} points, {int((cov >= 15).sum())} covisibility "
         f"pairs >= 15, in {seed_s:.1f} s")
     frames = list(range(1, n_track + 1))
+    probe = frames[frames.index(probe_from):][:8]
     imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
             for i in frames}
     C = sr.camera_centers(R, t)
@@ -606,7 +760,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     errs, times, cands, out = [], [], [], {}
     native.reset_launches()                 # the main path's run starts here
     for i in frames:
-        if i in (cpu_frames[0], probe_from):
+        if i in (cpu_frames[0], probe[0], probe[3]):
             snaps[i] = dict(last=tk.last, velocity=tk.velocity,
                             ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
                             state=tk.state)
@@ -626,12 +780,11 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         f"{np.median(errs):.5f} m, max {np.max(errs):.5f} m")
     if track_cfg.frontend != "fused":
         raise AssertionError("the main path runs the fused front end")
-    expect = dict(dense_frontend=n, cell_topk=orb_cfg.n_levels * n,
-                  gather_patches=orb_cfg.n_levels * n,
+    expect = dict(dense_frontend=n, cell_topk=n, gather_patches=n,
                   hamming_best2_windowed=2 * tk.n_steps)
     log(f"launches in the main path: {launches} (expected {expect}; "
-        f"dense_frontend launches once per frame, cell_topk and "
-        f"gather_patches once per pyramid level)")
+        f"dense_frontend, cell_topk and gather_patches launch once per "
+        f"frame for all pyramid levels)")
     if dev.type == "cuda":
         for name, want in expect.items():
             if launches[name] != want or want == 0:
@@ -649,11 +802,10 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
 
     syncs = prof = None
     if dev.type == "cuda":
-        probe = frames[frames.index(probe_from):][:8]
-        tkp = _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
-                       snaps[probe_from])
-        syncs = count_syncs(tkp, imgs, probe[:3])
-        prof = profile_frames(tkp, imgs, probe[3:8])
+        restore = lambda i: _restore(tracking, cam, m, track_cfg, orb_cfg,
+                                     dev, snaps[i])
+        syncs = count_syncs(restore(probe[0]), imgs, probe[:3])
+        prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:8])
         # the device's busy share of a frame: its kernel time (profiled)
         # over the frame's unprofiled host-clock time
         prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
@@ -731,7 +883,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     native.reset_launches()                 # the bootstrap path's run starts
     for i in range(n_frames):
         if init_at is not None and i in (init_at + 1, init_at + 5,
-                                         init_at + 8):
+                                         init_at + 8, init_at + 11):
             snaps[i] = dict(last=tk.last, velocity=tk.velocity,
                             ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
                             state=tk.state, trajectory=list(tk.trajectory),
@@ -789,9 +941,8 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         f"over {n_ate} poses (scale {scale:.4f})")
     if not rmse < gates["ate_m"]:
         raise AssertionError(f"ATE {rmse} m over the gate")
-    expect = dict(dense_frontend=n_frames,
-                  cell_topk=orb_cfg.n_levels * n_frames,
-                  gather_patches=orb_cfg.n_levels * n_frames)
+    expect = dict(dense_frontend=n_frames, cell_topk=n_frames,
+                  gather_patches=n_frames)
     log(f"launches on the bootstrap path: {launches} (expected {expect}, "
         f"hamming_best2 >= 2, hamming_best2_windowed >= {2 * tk.n_steps})")
     if dev.type == "cuda":
@@ -812,10 +963,12 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     cpu_frames = (init_at + 5, init_at + 6)
     syncs = prep = prof = None
     if dev.type == "cuda":
-        tkp = _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
-                       snaps[init_at + 8])
-        syncs = count_syncs(tkp, imgs, [init_at + 8 + j for j in range(3)])
-        prof = profile_frames(tkp, imgs, [init_at + 11 + j for j in range(3)],
+        restore = lambda i: _restore(tracking, cam, m, track_cfg, orb_cfg,
+                                     dev, snaps[i])
+        syncs = count_syncs(restore(init_at + 8), imgs,
+                            [init_at + 8 + j for j in range(3)])
+        prof = profile_frames(lambda: restore(init_at + 11), imgs,
+                              [init_at + 11 + j for j in range(3)],
                               table="profile_frames_bootstrap.txt",
                               alone=False)
         prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
@@ -824,8 +977,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         # frame that launches hamming_best2
         nn0 = native.launches["hamming_best2"]
         prof["ref_kf_frame"] = profile_frames(
-            _restore(tracking, cam, m, track_cfg, orb_cfg, dev,
-                     snaps[init_at + 1]), imgs, [init_at + 1],
+            lambda: restore(init_at + 1), imgs, [init_at + 1],
             table="profile_frame_ref_kf.txt", alone=False)
         if native.launches["hamming_best2"] - nn0 < 2:
             raise AssertionError("the profiled frame did not go through "
@@ -920,22 +1072,25 @@ def profile_call(fn, table=None):
     profiler's table by operator goes to chiprun_out/<table> if named."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p1:
+
+    def run(_):
         fn()
         torch.cuda.synchronize()
-    k1 = sum(e.count for e in p1.key_averages()
-             if e.device_type == DeviceType.CUDA)
+
+    avg = profiled(run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if avg is None:
+        raise AssertionError("the profiler saw no kernel of a profiled call")
+    k1 = sum(e.count for e in avg if e.device_type == DeviceType.CUDA)
     if table:
         out_dir = REPO / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / table).write_text(p1.key_averages().table(
+        (out_dir / table).write_text(avg.table(
             sort_by="self_cpu_time_total", row_limit=60))
-    return dict(device_ms=device_ms(fn, reps=5), kernels=k1,
-                host_ms=host_ms(fn))
+    return dict(device_ms=device_ms(fn, reps=5, what=table or "a call"),
+                kernels=k1, host_ms=host_ms(fn))
 
 
 def count_syncs(tk, imgs, frames):
@@ -986,15 +1141,18 @@ def host_ms(fn, reps=5):
 
 
 # the port's kernels as the profiler names them
-KERNEL_SYMBOLS = {"cell_topk": "cell_topk_kernel",
-                  "gather_patches": "gather_patches_kernel",
+KERNEL_SYMBOLS = {"cell_topk": "cell_topk_levels_kernel",
+                  "gather_patches": "gather_patches_levels_kernel",
                   "hamming_best2_windowed": "best2_kernel<true>",
                   "hamming_best2": "best2_kernel<false>",
                   "dense_frontend": "dense_frontend_kernel"}
 
 
-def profile_frames(tk, imgs, frames, table="profile_frames.txt", alone=True):
-    """torch.profiler over tracked frames: device time (sum of kernel
+def profile_frames(make_tk, imgs, frames, table="profile_frames.txt",
+                   alone=True):
+    """torch.profiler over frames tracked by make_tk()'s tracker (a fresh
+    one for each session, should a session lose its records): device time
+    (sum of kernel
     durations) and kernels per frame, and under "own_kernels" the device
     time and launches per frame of each hand-written kernel; the table by
     kernel goes to chiprun_out/<table>. Only the device's activity is
@@ -1004,7 +1162,7 @@ def profile_frames(tk, imgs, frames, table="profile_frames.txt", alone=True):
     and ms) and host time (prepare_frame alone is read in phase 5)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
 
     stages = {"pose_optimization": kernels.pose_opt}
@@ -1017,19 +1175,22 @@ def profile_frames(tk, imgs, frames, table="profile_frames.txt", alone=True):
             return saved[name](*a, **kw)
         return run
 
+    def run(tk):
+        for i in frames:
+            tk.track_monocular(imgs[i], 0.05 * i)
+        torch.cuda.synchronize()
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         for name, mod in stages.items():
             setattr(mod, name, capture(name))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in frames:
-                tk.track_monocular(imgs[i], 0.05 * i)
-            torch.cuda.synchronize()
+        avg = profiled(run, [ProfilerActivity.CUDA], setup=make_tk)
     finally:
         for name, mod in stages.items():
             setattr(mod, name, saved[name])
-    avg = prof.key_averages()
+    if avg is None:
+        raise AssertionError(f"the profiler saw no kernel of frames {frames}")
     n = len(frames)
     dev = [e for e in avg if e.device_type == DeviceType.CUDA]
     out = dict(device_ms=sum(e.self_device_time_total for e in dev) / 1e3 / n,
@@ -1134,7 +1295,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms", "plain_event_ms", "per_level", "unit",
+            "event_ms", "plain_event_ms", "atlas", "unit",
             "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
@@ -1145,7 +1306,8 @@ def main() -> int:
                     "frame": summary, "bootstrap": boot_summary,
                     "launches_by_path": {"steady": res["launches"],
                                          "bootstrap": boot["launches"]},
-                    "bound_rates": rates}))
+                    "bound_rates": rates,
+                    "event_time_in_place_of_device_time": EVENT_FALLBACKS}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ launches its kernel, and nowhere else; the CPU path never touches it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -31,8 +32,9 @@ launches = {"cell_topk": 0, "gather_patches": 0, "hamming_best2": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "slam_cell_topk": [_P, _P, _P, _I, _I, _I, _P],
-    "slam_gather_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
+    "slam_cell_topk_levels": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "slam_gather_patches_levels": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                   _P],
     "slam_hamming_best2": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
     "slam_hamming_best2_windowed": [_P, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _P, _P, _P, _I, _P, _P, _P, _P],
@@ -106,6 +108,13 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+@functools.lru_cache(maxsize=64)
+def int_array(values: tuple):
+    """A C int array of the values, made once for each tuple: the level
+    tables that the multi-level entries copy into their by-value tables."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def stream_ptr(tensor) -> int:

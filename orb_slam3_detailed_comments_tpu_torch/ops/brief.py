@@ -141,16 +141,20 @@ def angle_from_maps(m10: torch.Tensor, m01: torch.Tensor,
 
 
 def patch_corners(yx: torch.Tensor, radius: int, content_hw,
-                  row_off: int = 0) -> torch.Tensor:
+                  row_off=0) -> torch.Tensor:
     """[N, 2] int32 top-left corners of the (2r+1)^2 patches centred on yx
     (row, col), slid inward at the content border so that a patch always
-    covers real content; ``row_off`` shifts the rows (atlas coordinates)."""
-    ch, cw = content_hw
+    covers real content; ``row_off`` shifts the rows (atlas coordinates).
+    content_hw and row_off are ints, or [N] tensors that give each
+    keypoint its own level's."""
+    # an int extent becomes a CPU scalar tensor, which a CUDA op takes as
+    # a scalar (no upload)
+    ch, cw = map(torch.as_tensor, content_hw)
     w = 2 * radius + 1
-    return torch.stack([
-        torch.clamp(yx[:, 0] - radius, 0, max(ch - w, 0)) + row_off,
-        torch.clamp(yx[:, 1] - radius, 0, max(cw - w, 0)),
-    ], dim=-1).to(torch.int32)
+    slide = lambda start, extent: torch.minimum(start.clamp_min(0),
+                                                (extent - w).clamp_min(0))
+    return torch.stack([slide(yx[:, 0] - radius, ch) + row_off,
+                        slide(yx[:, 1] - radius, cw)], dim=-1).to(torch.int32)
 
 
 def extract_patches(img: torch.Tensor, yx: torch.Tensor, content_hw,

@@ -5,6 +5,11 @@ ORBextractor::ComputeKeyPointsOctTree, src/ORBextractor.cc:711-1061). The
 corner score of every pixel is computed at once, 3x3 NMS is a max-pool
 comparison, and spatial balancing is per-cell top-k (``ops/topk.py``)
 followed by a global rank-major selection.
+
+``select_levels`` selects every level of a frame at once: one
+``topk.cell_topk_levels`` call and one sort. ``select_grid_topk``,
+``select_from_nms_score`` and ``detect_level`` are the JAX package's
+per-level functions, against which the tests hold it.
 """
 from __future__ import annotations
 
@@ -55,15 +60,6 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= mx, score, torch.zeros_like(score))
 
 
-def border_mask(shape, content_hw, margin: int, device="cpu") -> torch.Tensor:
-    """True inside [margin, content - margin) on both axes."""
-    h, w = shape
-    ch, cw = content_hw
-    ys = torch.arange(h, device=device)[:, None]
-    xs = torch.arange(w, device=device)[None, :]
-    return (ys >= margin) & (ys < ch - margin) & (xs >= margin) & (xs < cw - margin)
-
-
 class Keypoints(NamedTuple):
     """Fixed-capacity keypoint set for one pyramid level."""
 
@@ -79,13 +75,8 @@ def select_grid_topk(score: torch.Tensor, n_target: int, cell: int = 32,
     a rank broken by score, then by candidate order."""
     h, w = score.shape
     dev = score.device
-    ph = (-h) % cell
-    pw = (-w) % cell
-    s = F.pad(score, (0, pw, 0, ph), value=0.0)
-    H, W = h + ph, w + pw
-    ncy, ncx = H // cell, W // cell
-    cells = s.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3).reshape(
-        ncy * ncx, cell * cell).contiguous()
+    ncy, ncx = -(-h // cell), -(-w // cell)
+    cells = topk.level_cells(score, (h, w), 0, cell).contiguous()
     top_s, top_i = topk.cell_topk(cells, k_per_cell)       # [C, k]
     top_i = top_i.long()
     cid = torch.arange(ncy * ncx, device=dev)
@@ -130,8 +121,41 @@ def select_from_nms_score(score_nms: torch.Tensor, content_hw, n_target: int,
                           cell: int = 32, k_per_cell: int = 4,
                           min_th: float = 7.0, margin: int = 16) -> Keypoints:
     """Border mask + uniform selection on an NMS'd score map."""
-    inside = border_mask(score_nms.shape, content_hw, margin,
-                         score_nms.device)
+    inside = topk.border_mask(score_nms.shape, content_hw, margin,
+                              score_nms.device)
     sc = torch.where(inside, score_nms, torch.zeros_like(score_nms))
     return select_grid_topk(sc, n_target, cell=cell, k_per_cell=k_per_cell,
                             min_th=min_th)
+
+
+def select_levels(score_maps, lay) -> Keypoints:
+    """``select_from_nms_score`` for every level of a frame at once.
+
+    score_maps: each level's NMS'd score map, of ``lay.shapes``; lay: the
+    frame's ``layout.FrameLayout`` (its cfg gives cell, k_per_cell, min_th
+    and margin). Returns one Keypoints of sum(lay.budgets) rows, level l's
+    in the rows [sum(budgets[:l]), sum(budgets[:l + 1])), each level
+    exactly what ``select_from_nms_score`` gives it. Every level's
+    candidates sit in one row of an [L, M] key, padded with +inf keys
+    (score 0, yx 0, invalid) to M = max_l max(C_l * k, n_l); one stable
+    sort orders every row, and the padding sorts after every real
+    candidate, as the per-level version's padding of a short level does."""
+    cfg = lay.cfg
+    cell, k = cfg.cell, cfg.k_per_cell
+    if tuple(tuple(s.shape) for s in score_maps) != lay.shapes:
+        raise ValueError("select_levels: score maps not of the layout's "
+                         "level shapes")
+    top_s, top_i = topk.cell_topk_levels(score_maps, lay.contents,
+                                         cfg.margin, k, cell)
+    cand = torch.where(lay.pad, 0.0, top_s.reshape(-1)[lay.src])  # [L, M]
+    ok = (cand >= cfg.min_th) & ~lay.pad
+    # rank-major key: lower rank first, then higher score (score <= 255)
+    key = torch.where(ok, lay.rank - cand, float("inf"))
+    order = torch.sort(-key, dim=1, descending=True, stable=True)[1]
+    sel = order.reshape(-1)[lay.cut] + lay.base                 # [N] slots
+    ti = top_i.reshape(-1)[lay.src.reshape(-1)[sel]].long()
+    on = ~lay.pad.reshape(-1)[sel]
+    yx = torch.stack([(lay.y0[sel] + ti // cell) * on,
+                      (lay.x0[sel] + ti % cell) * on], dim=-1)
+    return Keypoints(yx=yx.to(torch.int32), score=cand.reshape(-1)[sel],
+                     valid=ok.reshape(-1)[sel])

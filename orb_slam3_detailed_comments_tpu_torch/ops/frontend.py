@@ -121,9 +121,7 @@ def _layout(shapes):
     entry takes them."""
     sizes = [h * w for h, w in shapes]
     offsets = [sum(sizes[:k]) for k in range(len(sizes))]
-    ints = ctypes.c_int * len(shapes)
-    return (sizes, offsets, sum(sizes), ints(*[h for h, _ in shapes]),
-            ints(*[w for _, w in shapes]))
+    return (sizes, offsets, sum(sizes), *map(native.int_array, zip(*shapes)))
 
 
 @functools.cache

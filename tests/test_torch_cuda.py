@@ -7,7 +7,9 @@ with the card has no JAX, so run them without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: exact equality of values and indices, at the shapes of the
-752x480, 1024-feature main path plus constructed ties and gated rows, and
+752x480, 1024-feature main path plus constructed ties and gated rows
+(``cell_topk`` and ``gather_patches`` also over tables of 1 and 16 levels,
+with ``chip_smoke.score_maps_case`` and ``chip_smoke.corners_case``), and
 for the best-2 searches also from 1 x 1 to 64 x 5000 with ties planted
 across and within the kernel's lanes (``chip_smoke.tie_case``).
 ``dense_frontend``: score and blur exactly equal, each moment map within
@@ -60,6 +62,67 @@ def test_cell_topk_kernel_equals_plain(dev, rng, rows):
     vp, ip = topk.cell_topk_plain(xc, 8)
     _same(v, vp)
     _same(i, ip)
+
+
+def _main_path_layout():
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor, layout
+    orb = extractor.OrbConfig()
+    return (orb, pyramid.level_shapes(480, 752, orb.n_levels, orb.scale),
+            layout.content_dims(orb, 480, 752))
+
+
+def test_cell_topk_levels_kernel_equals_plain(dev, rng):
+    """The frame's one launch over the 8 level maps of a 752x480 frame
+    (all-zero, tied, negative and -inf cells, scores past the content),
+    then tables of 1 and 16 levels; 17 are refused before any launch."""
+    orb, shapes, contents = _main_path_layout()
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    maps = chip_smoke.score_maps_case(rng, shapes, f)
+    k, margin = orb.k_per_cell, orb.margin
+    for m, c in ((maps, contents), (maps[-1:], contents[-1:]),
+                 (maps * 2, contents * 2)):
+        before = native.launches["cell_topk"]
+        v, i = topk.cell_topk_levels(m, c, margin, k)
+        assert native.launches["cell_topk"] == before + 1
+        vp, ip = topk.cell_topk_levels_plain(m, c, margin, k)
+        _same(v, vp)
+        _same(i, ip)
+    ncx = -(-shapes[0][1] // 32)
+    v, i = topk.cell_topk_levels(maps, contents, margin, k)
+    assert i[ncx + 3, :3].tolist() == [33, 600, 992]
+    assert i[ncx + 4].tolist() == list(range(k))
+    assert bool(torch.isinf(v[ncx + 4]).all())
+    before = native.launches["cell_topk"]
+    with pytest.raises(ValueError, match="levels"):
+        topk.cell_topk_levels(maps * 2 + maps[:1], contents * 2
+                              + contents[:1], margin, k)
+    assert native.launches["cell_topk"] == before
+
+
+def test_gather_patches_levels_kernel_equals_plain(dev, rng):
+    """The frame's one launch: 1024 37x37 windows from the 8 level images
+    at patch_corners' corners, some outside the image; then tables of 1 and
+    16 images; 17 are refused before any launch."""
+    from orb_slam3_detailed_comments_tpu_torch.ops import brief, layout
+    orb, shapes, contents = _main_path_layout()
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    imgs = [f(np.round(rng.uniform(0, 255, s)).astype(np.float32))
+            for s in shapes]
+    level, rc = chip_smoke.corners_case(rng, shapes, contents,
+                                        layout.level_budgets(orb), f)
+    alt = level + 8 * (torch.arange(level.shape[0], device=dev) % 2).to(
+        torch.int32)
+    pw = brief.PATCH_W
+    for im, lv in ((imgs, level), (imgs[:1], torch.zeros_like(level)),
+                   (imgs * 2, alt)):
+        before = native.launches["gather_patches"]
+        got = patches.gather_patches_levels(im, lv, rc, pw)
+        assert native.launches["gather_patches"] == before + 1
+        _same(got, patches.gather_patches_levels_plain(im, lv, rc, pw))
+    before = native.launches["gather_patches"]
+    with pytest.raises(ValueError, match="images"):
+        patches.gather_patches_levels(imgs * 2 + imgs[:1], level, rc, pw)
+    assert native.launches["gather_patches"] == before
 
 
 @pytest.mark.parametrize("ph", [31, 37])
@@ -264,15 +327,15 @@ def test_dense_frontend_rejects_what_the_kernel_does_not_take(dev):
         frontend.dense_frontend(torch.zeros((16, 16), device=dev)[:, ::2])
 
 
-def test_fused_extractor_launches_the_kernel_once_per_level(dev, rng):
+def test_fused_extractor_launches_each_kernel_once_a_frame(dev, rng):
     from orb_slam3_detailed_comments_tpu_torch.ops import extractor
     img = torch.from_numpy(np.round(rng.uniform(0, 255, (480, 752))).astype(
         np.float32)).to(dev)
     before = dict(native.launches)
     f = extractor.extract(img, extractor.OrbConfig())
-    # one launch for all 8 levels; the patch gathers stay one a level
-    assert native.launches["dense_frontend"] == before["dense_frontend"] + 1
-    assert native.launches["gather_patches"] == before["gather_patches"] + 8
+    # one launch each for all 8 levels
+    for name in ("dense_frontend", "cell_topk", "gather_patches"):
+        assert native.launches[name] == before[name] + 1
     g = extractor.extract(img.cpu(), extractor.OrbConfig())
     torch.cuda.synchronize()
     same = ((f.xy.cpu() == g.xy).all(1) & (f.valid.cpu() == g.valid))
