@@ -23,12 +23,14 @@ Phases, each of which raises on failure:
      and the least time the card could take (its bound);
   4. main path: seeds a map from ground truth (EuRoC-sized pinhole camera,
      OrbConfig() and MapConfig() defaults, the fused front end), then drives
-     Tracker.track_monocular over the trajectory, checks that every kernel
-     of the path launched as often as the frames require, gates the poses
-     against the ground truth, counts the host syncs of 3 frames, profiles 5
-     more (torch.profiler: device time and kernels per frame, the device
-     time of each hand-written kernel, and pose_optimization alone; table
-     in chiprun_out/profile_frames.txt), re-runs two frames on the CPU and
+     Tracker.track_monocular over the trajectory (the tracker adds
+     keyframes to the seeded map; keyframe frames are timed apart), checks
+     that every kernel of the path launched as often as the frames require,
+     gates the poses against the ground truth, counts the host syncs of 3
+     frames, profiles 5 more (torch.profiler: device time and kernels per
+     frame, the device time of each hand-written kernel, and
+     pose_optimization alone; table in chiprun_out/profile_frames.txt),
+     re-runs two frames on the CPU from a snapshot of tracker and map and
      compares;
   5. bootstrap path: a fresh map and tracker, fed the rendered orbit from
      the first image: two-view initialisation, initial bundle adjustment,
@@ -39,15 +41,31 @@ Phases, each of which raises on failure:
      profiles 3 steady frames as phase 4 does (table in
      chiprun_out/profile_frames_bootstrap.txt) and prepare_frame alone on
      both front ends, holds the "xla" front end's features against the
-     fused one's, and times whole steady frames on either, in turns.
+     fused one's, and times whole steady frames on either, in turns. The
+     bare tracker inserts keyframes here too, but no local mapper runs;
+  6. System path: System(cam, MONOCULAR, enable_loop_closing=False) on the
+     card, fed test_pipeline_mono's 60-frame orbit (world seed 7, ray-cast
+     frames): builds and keeps its own map (keyframe insertion, the
+     LocalMapper's triangulation, fusion, local BA and culling), gated by
+     test_mono_end_to_end's gates; every kernel's launches checked against
+     the frames' paths and the keyframe events' fuse searches; each event
+     logged (host clock by stage, the local BA's camera count, points and
+     keyframes created and culled); one event replayed on the CPU from a
+     snapshot of the map and compared, profiled (device time, kernels, host
+     clock, host syncs; chiprun_out/profile_keyframe_event.txt), and its
+     fuse searches held against the plain version at their own shapes; 3
+     steady frames of the grown map profiled
+     (chiprun_out/profile_frames_system.txt).
 
 Output: per-phase lines, then on lines of their own the kernels' JSON
-record, the card's name and power limit (nvidia-smi's csv), and last
+record (with the System phase's record under "system"), the card's name
+and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card or the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -710,26 +728,54 @@ def frontend_kernel_check(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def _restore(tracking, cam, m, track_cfg, orb_cfg, dev, snap):
-    """A tracker on map m, in the state another tracker had at a snapshot."""
+# what a tracker carries from frame to frame, besides its map
+TRACKER_STATE = ("last", "velocity", "ref_kf", "last_kf_id",
+                 "last_kf_frame_id", "state", "frame_id", "trajectory",
+                 "_seed_from_kfs")
+
+
+def snapshot(tk):
+    """A tracker's state and its map's arrays: the tracker inserts
+    keyframes, so a restored one needs the map as it was, too."""
+    snap = {key: getattr(tk, key) for key in TRACKER_STATE}
+    snap["trajectory"] = list(tk.trajectory)
+    snap["map"] = map_arrays(tk.map)
+    return snap
+
+
+def map_arrays(m):
+    return {**m.to_numpy(), "tombstones": copy.deepcopy(m.tombstones)}
+
+
+def _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev, snap):
+    """A tracker, on a copy of the map, in the state another tracker had at
+    a snapshot; the map's device copies are made here, as the tracker that
+    was snapshotted had them already."""
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    m = MapStore.from_numpy(snap["map"], map_cfg, device=dev)
+    m.device_points()
+    m.device_kf_obs()
     tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
     for key, val in snap.items():
-        setattr(tk, key, list(val) if isinstance(val, list) else val)
+        if key != "map":
+            setattr(tk, key, list(val) if isinstance(val, list) else val)
     return tk
 
 
 def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
               n_track=N_TRACK, map_cfg=None, orb_cfg=None, track_cfg=None,
               cpu_frames=CPU_FRAMES, probe_from=PROBE_FROM):
-    """Seed a map, track frames through Tracker.track_monocular, check the
-    launch counts and the poses, re-run cpu_frames on the CPU, and on the
-    card count the host syncs of 3 frames and profile 5, from probe_from
-    on, with a tracker restored to its state there."""
+    """Seed a map, track frames through Tracker.track_monocular (which
+    adds keyframes to the seeded map), check the launch counts and the
+    poses, re-run cpu_frames on the CPU, and on the card count the host
+    syncs of 3 frames and profile 5, from probe_from on, with a tracker
+    and map restored to their state there."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch import native
     from orb_slam3_detailed_comments_tpu_torch.lie import SE3
     from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
-        MapConfig, MapStore)
+        MapConfig)
     from orb_slam3_detailed_comments_tpu_torch.models import cameras
     from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
     from orb_slam3_detailed_comments_tpu_torch.pipeline import tracking
@@ -757,19 +803,20 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
     tk.start_from_map(SE3(R[0], t[0]), 0.0, last_kf_id=int(m.kf_ids()[0]))
     snaps = {}
-    errs, times, cands, out = [], [], [], {}
+    errs, times, cands, out, kf_frames = [], [], [], {}, []
     native.reset_launches()                 # the main path's run starts here
     for i in frames:
         if i in (cpu_frames[0], probe[0], probe[3]):
-            snaps[i] = dict(last=tk.last, velocity=tk.velocity,
-                            ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
-                            state=tk.state)
+            snaps[i] = snapshot(tk)
+        n_kf0 = len(tk.new_keyframes)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         T = tk.track_monocular(imgs[i], 0.05 * i)
         times.append(time.perf_counter() - t0)
         cands.append(tk.n_candidates2)
+        if len(tk.new_keyframes) > n_kf0:
+            kf_frames.append(i)
         if T is not None:
             errs.append(float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] - C[i])))
             out[i] = (T, tk.cur_match.copy())
@@ -777,7 +824,9 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     n = len(frames)
     log(f"stage-2 candidates per frame (ids2 >= 0): {cands}")
     log(f"tracked {len(errs)}/{n} frames; centre error median "
-        f"{np.median(errs):.5f} m, max {np.max(errs):.5f} m")
+        f"{np.median(errs):.5f} m, max {np.max(errs):.5f} m; the tracker "
+        f"inserted {len(kf_frames)} keyframes (frames {kf_frames}), the map "
+        f"now holds {m.n_kf}")
     if track_cfg.frontend != "fused":
         raise AssertionError("the main path runs the fused front end")
     expect = dict(dense_frontend=n, cell_topk=n, gather_patches=n,
@@ -795,15 +844,19 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     if np.median(errs) >= GATES["median_m"] or np.max(errs) >= GATES["max_m"]:
         raise AssertionError(f"pose error median {np.median(errs):.4f} m / "
                              f"max {np.max(errs):.4f} m over the gates")
-    ms = np.array(times[1:]) * 1e3          # frame 1 warms the allocator
+    # frame 1 warms the allocator; keyframe frames are timed apart
+    ms = np.array([t for i, t in zip(frames, times)
+                   if i != frames[0] and i not in kf_frames]) * 1e3
+    kf_ms = {i: t * 1e3 for i, t in zip(frames, times) if i in kf_frames}
     log(f"frame time (host clock, image upload to pose): median "
         f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms over "
-        f"{len(ms)} frames")
+        f"{len(ms)} frames without a keyframe; keyframe frames "
+        f"{ {i: round(v, 1) for i, v in kf_ms.items()} } ms")
 
     syncs = prof = None
     if dev.type == "cuda":
-        restore = lambda i: _restore(tracking, cam, m, track_cfg, orb_cfg,
-                                     dev, snaps[i])
+        restore = lambda i: _restore(tracking, cam, map_cfg, track_cfg,
+                                     orb_cfg, dev, snaps[i])
         syncs = count_syncs(restore(probe[0]), imgs, probe[:3])
         prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:8])
         # the device's busy share of a frame: its kernel time (profiled)
@@ -813,8 +866,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
 
     # the same two frames on the CPU, from the same map and tracker state
     cpu = torch.device("cpu")
-    m_cpu = MapStore.from_numpy(m.to_numpy(), map_cfg, device=cpu)
-    tkc = _restore(tracking, cam, m_cpu, track_cfg, orb_cfg, cpu,
+    tkc = _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, cpu,
                    snaps[cpu_frames[0]])
     worst_match, worst_pose = 1.0, 0.0
     for i in cpu_frames:
@@ -832,15 +884,17 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         raise AssertionError("card and CPU disagree")
     return dict(launches=launches, frame_ms_median=float(np.median(ms)),
                 frame_ms_p90=float(np.percentile(ms, 90)), syncs=syncs,
-                profile=prof)
+                profile=prof, kf_inserted=len(kf_frames), kf_frame_ms=kf_ms)
 
 
 # ---------------------------------------------------------------- phase 5
 # bootstrap configuration: phase 4's world on test_pipeline_mono's 60-frame
-# orbit, fed from the first image on the fused front end. On the CPU the
-# port initialises at frame 4 and its two-keyframe map carries tracking to
-# frame 52; the JAX Tracker alone, which inserts keyframes, reads the same
-# on the same frames (tests/run_bootstrap_fullsize.py prints both).
+# orbit, fed from the first image on the fused front end, to a bare
+# Tracker: it inserts keyframes but no local mapper adds points, so the map
+# keeps its initial points. On the CPU both packages initialise at frame 4
+# and have inserted 24 keyframes more by frame 48; the port tracks every
+# frame to 55, the JAX package all but frame 53
+# (tests/run_bootstrap_fullsize.py prints both).
 N_BOOT = 48
 BOOT_GATES = dict(init_by=15, min_points=100, steady_frames=10, ate_m=0.05,
                   cpu_match=0.99, cpu_pose=1e-3)
@@ -879,21 +933,21 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     m = MapStore(map_cfg, dev)
     tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
     init_at = None
-    how, est, times, out, snaps = {}, [], [], {}, {}
+    how, est, times, out, snaps, kf_frames = {}, [], [], {}, {}, []
     native.reset_launches()                 # the bootstrap path's run starts
     for i in range(n_frames):
         if init_at is not None and i in (init_at + 1, init_at + 5,
                                          init_at + 8, init_at + 11):
-            snaps[i] = dict(last=tk.last, velocity=tk.velocity,
-                            ref_kf=tk.ref_kf, last_kf_id=tk.last_kf_id,
-                            state=tk.state, trajectory=list(tk.trajectory),
-                            frame_id=tk.frame_id)
+            snaps[i] = snapshot(tk)
         steps0, nn0 = tk.n_steps, native.launches["hamming_best2"]
+        n_kf0 = len(tk.new_keyframes)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         T = tk.track_monocular(imgs[i], float(ts[i]))
         times.append(time.perf_counter() - t0)
+        if init_at is not None and len(tk.new_keyframes) > n_kf0:
+            kf_frames.append(i)
         if T is None:
             how[i] = "none"
             continue
@@ -938,33 +992,39 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         ts, C, np.array([e[0] for e in est]), np.array([e[1] for e in est]))
     log(f"{steady} consecutive steady frames after frame {init_at + 1}; "
         f"{len(est)} frames tracked in all; scale-aligned ATE {rmse:.5f} m "
-        f"over {n_ate} poses (scale {scale:.4f})")
+        f"over {n_ate} poses (scale {scale:.4f}); the tracker inserted "
+        f"{len(kf_frames)} keyframes after the initial two (frames "
+        f"{kf_frames}; no local mapper runs here, so the map keeps "
+        f"{m.n_points} points)")
     if not rmse < gates["ate_m"]:
         raise AssertionError(f"ATE {rmse} m over the gate")
+    # two best-2 scans a reference-keyframe search, two projection
+    # searches a fused step and one a local-map stage outside it
     expect = dict(dense_frontend=n_frames, cell_topk=n_frames,
-                  gather_patches=n_frames)
-    log(f"launches on the bootstrap path: {launches} (expected {expect}, "
-        f"hamming_best2 >= 2, hamming_best2_windowed >= {2 * tk.n_steps})")
+                  gather_patches=n_frames,
+                  hamming_best2=2 * tk.n_ref_kf_searches,
+                  hamming_best2_windowed=2 * tk.n_steps
+                  + tk.n_local_map_searches)
+    log(f"launches on the bootstrap path: {launches} (expected {expect})")
     if dev.type == "cuda":
         for name, want in expect.items():
-            if launches[name] != want:
+            if launches[name] != want or want == 0:
                 raise AssertionError(f"{name}: {launches[name]} launches, "
                                      f"expected {want}")
-        if (launches["hamming_best2"] < 2
-                or launches["hamming_best2_windowed"] < 2 * tk.n_steps):
-            raise AssertionError("a matching kernel was not launched")
     ms = np.array([times[i] for i in range(n_frames)
-                   if how[i] == "steady"][1:]) * 1e3
+                   if how[i] == "steady" and i not in kf_frames][1:]) * 1e3
+    kf_ms = {i: times[i] * 1e3 for i in kf_frames}
     log(f"steady frame time on the fused front end (host clock): median "
-        f"{np.median(ms):.2f} ms over {len(ms)} frames; the initialising "
-        f"frame took {times[init_at] * 1e3:.1f} ms, the reference-keyframe "
-        f"frame {times[init_at + 1] * 1e3:.1f} ms")
+        f"{np.median(ms):.2f} ms over {len(ms)} frames without a keyframe; "
+        f"keyframe frames { {i: round(v, 1) for i, v in kf_ms.items()} } "
+        f"ms; the initialising frame took {times[init_at] * 1e3:.1f} ms, "
+        f"the reference-keyframe frame {times[init_at + 1] * 1e3:.1f} ms")
 
     cpu_frames = (init_at + 5, init_at + 6)
     syncs = prep = prof = None
     if dev.type == "cuda":
-        restore = lambda i: _restore(tracking, cam, m, track_cfg, orb_cfg,
-                                     dev, snaps[i])
+        restore = lambda i: _restore(tracking, cam, map_cfg, track_cfg,
+                                     orb_cfg, dev, snaps[i])
         syncs = count_syncs(restore(init_at + 8), imgs,
                             [init_at + 8 + j for j in range(3)])
         prof = profile_frames(lambda: restore(init_at + 11), imgs,
@@ -1008,7 +1068,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         ab = {"xla": [], "fused": []}
         ab_frames = [init_at + 8 + j for j in range(4)]
         for fe in ("xla", "fused", "fused", "xla"):
-            tka = _restore(tracking, cam, m, dataclasses.replace(
+            tka = _restore(tracking, cam, map_cfg, dataclasses.replace(
                 track_cfg, frontend=fe), orb_cfg, dev, snaps[init_at + 8])
             for i in ab_frames:
                 torch.cuda.synchronize()
@@ -1024,8 +1084,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
 
     # the same two steady frames on the CPU, from the same map and state
     cpu = torch.device("cpu")
-    m_cpu = MapStore.from_numpy(m.to_numpy(), map_cfg, device=cpu)
-    tkc = _restore(tracking, cam, m_cpu, track_cfg, orb_cfg, cpu,
+    tkc = _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, cpu,
                    snaps[cpu_frames[0]])
     worst_match, worst_pose = 1.0, 0.0
     for i in cpu_frames:
@@ -1042,8 +1101,327 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     return dict(launches=launches, init_at=init_at, n_points=n_pts,
                 n_init_matches=tk.n_init_matches, n_init_good=tk.n_init_good,
                 steady=steady, tracked=len(est), ate_m=rmse,
+                kf_inserted=len(kf_frames), kf_frame_ms=kf_ms,
                 frame_ms_median=float(np.median(ms)), syncs=syncs,
                 profile=prof, prepare_frame=prep)
+
+
+# ---------------------------------------------------------------- phase 6
+# the monocular System of test_pipeline_mono.py's test_mono_end_to_end with
+# loop closing off, at full width: the 60-frame orbit in world seed 7,
+# rendered by ray casting, ts = 0.05 i, OrbConfig(), MapConfig(), the fused
+# front end. On the CPU (tests/run_bootstrap_fullsize.py system-torch and
+# system-jax) both packages initialise at frame 3 and keep 57 trajectory
+# rows; the port ends at 18 keyframes and 1,354 points, the JAX package at
+# 15 and 1,207.
+N_SYS = 60
+SYS_GATES = dict(tracked=0.7, min_kf=3, min_points=200, last_tracked=30,
+                 rows=0.7, ate_m=0.05, ate_poses=0.6, max_cams=48,
+                 replay_new=0.05)
+SYS_STAGES = ("KF insertion", "MP culling", "MP creation", "local BA",
+              "KF culling")
+
+
+def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
+                map_cfg=None, orb_cfg=None, track_cfg=None, mapping_cfg=None,
+                gates=SYS_GATES, replay_from=45, profile_from=50):
+    """System(cam, MONOCULAR, enable_loop_closing=False) fed the orbit:
+    gates the run with test_mono_end_to_end's gates, checks that each
+    kernel launched as often as the frames and keyframe events require,
+    logs each keyframe event (host clock by span, the local BA's camera
+    count, points created, culled and fused, keyframes culled), replays
+    one event on the CPU from a snapshot of the map taken before it and
+    compares (the first from frame replay_from on that culled a keyframe,
+    else the first from there on); on the card also profiles that event
+    and 3 frames from profile_from on, and holds the fuse passes' searches
+    against the plain version at their own shapes."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig, MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import hamming
+    from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        local_mapping, system, tracking)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr, timing)
+
+    cam = cameras.pinhole(**cam_kw)
+    map_cfg = map_cfg or MapConfig()
+    track_cfg = track_cfg or tracking.TrackingConfig()
+    orb_cfg = orb_cfg or OrbConfig(n_features=track_cfg.n_features)
+    mapping_cfg = mapping_cfg or local_mapping.LocalMappingConfig()
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(60)
+    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+            for i in range(n_frames)}
+    C = sr.camera_centers(R, t)
+    ts = 0.05 * np.arange(len(C))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    slam = system.System(cam, system.MONOCULAR, map_cfg=map_cfg,
+                         tracking_cfg=track_cfg, mapping_cfg=mapping_cfg,
+                         enable_loop_closing=False, orb_cfg=orb_cfg,
+                         device=dev)
+    tk, lm = slam.tracker, slam.local_mapper
+    events, replay, frame = [], {}, [0]
+    process = lm.process_keyframe
+
+    def logged_process(k):
+        snap = None
+        if "index" not in replay and frame[0] >= replay_from:
+            snap = dict(index=len(events), frame=frame[0], kf=int(k),
+                        map=map_arrays(lm.map), recent=dict(lm.recent_points))
+            replay.setdefault("first", snap)
+        n0 = {st: len(timing.samples(st)) for st in SYS_STAGES}
+        sync()
+        t0 = time.perf_counter()
+        process(k)
+        sync()
+        host = (time.perf_counter() - t0) * 1e3
+        events.append(dict(lm.last_event, frame=frame[0], host_ms=host,
+                           span_ms={st: 1e3 * sum(timing.samples(st)[n0[st]:])
+                                    for st in SYS_STAGES}))
+        ev = events[-1]
+        log(f"  keyframe event at frame {frame[0]}: keyframe {ev['kf']}, "
+            f"{host:.1f} ms host clock ("
+            + ", ".join(f"{st} {v:.1f}" for st, v in ev["span_ms"].items())
+            + f"); local BA C = {ev['ba_cams']}; points +{ev['new_points']} "
+            f"created, {ev['culled_points']} culled, {ev['fused']} fuse "
+            f"links; keyframes culled {ev['culled_kfs']}; "
+            f"{ev['fuse_searches']} fuse searches")
+        if ev["ba_cams"] > gates["max_cams"]:
+            raise AssertionError(f"local BA with {ev['ba_cams']} cameras: "
+                                 f"the table tier stops at "
+                                 f"{gates['max_cams']}")
+        if snap is not None and ev["culled_kfs"]:
+            replay.update(snap)
+
+    lm.process_keyframe = logged_process
+    poses, times, how, prof_snap = [], [], {}, None
+    native.reset_launches()                 # the System path's run starts
+    for i in range(n_frames):
+        frame[0] = i
+        if i == profile_from:
+            prof_snap = snapshot(tk)
+        steps0, ref0, n_ev0 = tk.n_steps, tk.n_ref_kf_searches, len(events)
+        sync()
+        t0 = time.perf_counter()
+        T = slam.track_monocular(imgs[i], float(ts[i]))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        poses.append(T)
+        how[i] = ("none" if T is None else "init" if tk.n_steps == steps0
+                  and tk.n_ref_kf_searches == ref0 else "steady"
+                  if tk.n_ref_kf_searches == ref0 else "ref_kf")
+        if len(events) > n_ev0:
+            how[i] += "+kf"
+    launches = dict(native.launches)        # ... and ends here
+    lm.process_keyframe = process
+    log(f"frames by path: {how}")
+
+    # launches: extraction once a frame; the reference-keyframe search's
+    # two best-2 scans; two projection searches a fused step, one for each
+    # local-map stage outside it, one for each fuse search of an event
+    n_fuse = sum(ev["fuse_searches"] for ev in events)
+    expect = dict(dense_frontend=n_frames, cell_topk=n_frames,
+                  gather_patches=n_frames,
+                  hamming_best2=2 * tk.n_ref_kf_searches,
+                  hamming_best2_windowed=2 * tk.n_steps
+                  + tk.n_local_map_searches + n_fuse)
+    log(f"launches on the System path: {launches} (expected {expect}: "
+        f"{tk.n_steps} fused steps, {tk.n_ref_kf_searches} reference-"
+        f"keyframe and {tk.n_local_map_searches} local-map stages, "
+        f"{len(events)} keyframe events with {n_fuse} fuse searches)")
+    if dev.type == "cuda":
+        for name, want in expect.items():
+            if launches[name] != want or want == 0:
+                raise AssertionError(f"{name}: {launches[name]} launches, "
+                                     f"expected {want}")
+    if n_fuse == 0:
+        raise AssertionError("no keyframe event ran a fuse search")
+
+    # test_mono_end_to_end's gates
+    tracked = [i for i, p in enumerate(poses) if p is not None]
+    mp = slam.get_tracked_map_points()
+    rows = slam.trajectory_tum()
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(
+        ts, C, np.array([r[0] for r in rows]),
+        np.array([r[1:4] for r in rows]))
+    errs = slam.check_map_consistency()
+    rec = dict(tracked=len(tracked), keyframes=slam.n_keyframes,
+               points=slam.n_map_points, state=slam.get_tracking_state(),
+               lost=slam.is_lost(), last_tracked=int((mp >= 0).sum()),
+               consistency=errs, rows=len(rows), ate_m=rmse, ate_poses=n_ate,
+               ate_scale=scale, init_at=tracked[0] if tracked else None,
+               n_events=len(events), launches=launches)
+    log(f"System: initialised at frame {rec['init_at']}; {len(tracked)}/"
+        f"{n_frames} frames tracked; {slam.n_keyframes} keyframes, "
+        f"{slam.n_map_points} points; state {rec['state']}, lost "
+        f"{rec['lost']}; {rec['last_tracked']} map points in the last "
+        f"frame; consistency {errs}; {len(rows)} trajectory rows; "
+        f"scale-aligned ATE {rmse:.5f} m over {n_ate} poses (scale "
+        f"{scale:.4f}); {len(events)} keyframe events, "
+        f"{sum(len(ev['culled_kfs']) for ev in events)} keyframes culled")
+    n = n_frames
+    fails = [name for name, bad in (
+        ("frames tracked", len(tracked) <= gates["tracked"] * n),
+        ("keyframes", slam.n_keyframes < gates["min_kf"]),
+        ("map points", slam.n_map_points <= gates["min_points"]),
+        ("final state", rec["state"] != tracking.OK or rec["lost"]),
+        ("last frame's map points", rec["last_tracked"]
+         <= gates["last_tracked"]),
+        ("map consistency", errs != []),
+        ("trajectory rows", len(rows) <= gates["rows"] * n),
+        ("ATE", not (n_ate > gates["ate_poses"] * n
+                     and rmse < gates["ate_m"]))) if bad]
+    if fails:
+        raise AssertionError(f"the System missed the gates: {fails}")
+
+    steady = [i for i in range(1, n_frames) if how[i] == "steady"]
+    ms = np.array([times[i] for i in steady])
+    rec.update(frame_ms_median=float(np.median(ms)),
+               frame_ms_p90=float(np.percentile(ms, 90)),
+               kf_frame_ms={i: times[i] for i in range(n_frames)
+                            if how[i].endswith("+kf")},
+               events=[{k: v for k, v in ev.items()} for ev in events])
+    log(f"frame time (host clock, image upload to pose): median "
+        f"{rec['frame_ms_median']:.2f} ms, p90 {rec['frame_ms_p90']:.2f} ms "
+        f"over {len(ms)} steady frames without a keyframe event; keyframe "
+        f"frames (tracking + local mapping) "
+        f"{ {i: round(v, 1) for i, v in rec['kf_frame_ms'].items()} } ms")
+
+    if "first" not in replay:
+        raise AssertionError(f"no keyframe event from frame {replay_from} "
+                             f"on to replay")
+    replay = {**replay.pop("first"), **replay}
+    k, ev_card = replay["kf"], events[replay["index"]]
+
+    def mapper(device):
+        m = MapStore.from_numpy(replay["map"], map_cfg, device=device)
+        lm2 = local_mapping.LocalMapper(m, cam, mapping_cfg)
+        lm2.recent_points = dict(replay["recent"])
+        return lm2
+
+    # the event once more on the CPU, from the snapshot taken before it
+    t0 = time.perf_counter()
+    lm_cpu = mapper(torch.device("cpu"))
+    lm_cpu.process_keyframe(k)
+    ev_cpu = lm_cpu.last_event
+    rec["replay"] = dict(frame=replay["frame"], kf=k, card=ev_card,
+                         cpu=dict(ev_cpu), cpu_s=time.perf_counter() - t0)
+    log(f"keyframe event of frame {replay['frame']} replayed on the CPU in "
+        f"{rec['replay']['cpu_s']:.1f} s: new points {ev_cpu['new_points']} "
+        f"(card {ev_card['new_points']}), culled points "
+        f"{ev_cpu['culled_points']} (card {ev_card['culled_points']}), "
+        f"culled keyframes {ev_cpu['culled_kfs']} (card "
+        f"{ev_card['culled_kfs']}), fuse links {ev_cpu['fused']} (card "
+        f"{ev_card['fused']})")
+    if (abs(ev_cpu["new_points"] - ev_card["new_points"])
+            > gates["replay_new"] * ev_card["new_points"]
+            or ev_cpu["culled_kfs"] != ev_card["culled_kfs"]
+            or ev_cpu["culled_points"] != ev_card["culled_points"]):
+        raise AssertionError("the keyframe event differs between the card "
+                             "and the CPU")
+
+    if dev.type == "cuda":
+        rec["event_profile"] = profile_event(mapper, dev, k)
+        rec["fuse_search_check"] = fuse_search_check(mapper, dev, k, hamming)
+        rec["profile"] = profile_frames(
+            lambda: _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev,
+                             prof_snap), imgs,
+            [profile_from + j for j in range(3)],
+            table="profile_frames_system.txt", alone=False)
+        rec["profile"]["busy_share"] = (rec["profile"]["device_ms"]
+                                        / rec["frame_ms_median"])
+        log(f"device busy share of a steady frame: "
+            f"{rec['profile']['busy_share']:.3f}")
+    return rec
+
+
+def profile_event(mapper, dev, k):
+    """One keyframe event (process_keyframe from a snapshot of the map):
+    device time, kernels and the hand-written kernels' share from
+    torch.profiler; host clock unprofiled (median of 3); host syncs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    def run(lm):
+        lm.process_keyframe(k)
+        torch.cuda.synchronize()
+
+    host = []
+    for _ in range(3):
+        lm = mapper(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(lm)
+        host.append((time.perf_counter() - t0) * 1e3)
+    lm = mapper(dev)
+    sites = sync_sites(lambda: run(lm))
+    avg = profiled(run, [ProfilerActivity.CUDA], setup=lambda: mapper(dev))
+    if avg is None:
+        raise AssertionError("the profiler saw no kernel of a keyframe event")
+    evs = [e for e in avg if e.device_type == DeviceType.CUDA]
+    out = dict(host_ms=float(np.median(host)), host_ms_runs=host,
+               device_ms=sum(e.self_device_time_total for e in evs) / 1e3,
+               kernels=sum(e.count for e in evs),
+               syncs=sum(sites.values()), sync_sites=dict(sites),
+               own_kernels={name: dict(
+                   ms=sum(e.self_device_time_total for e in evs
+                          if symbol in e.key) / 1e3,
+                   launches=sum(e.count for e in evs if symbol in e.key))
+                   for name, symbol in KERNEL_SYMBOLS.items()})
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_keyframe_event.txt").write_text(avg.table(
+        sort_by="self_device_time_total", row_limit=60,
+        max_name_column_width=80))
+    log(f"keyframe event of keyframe {k}, profiled: device "
+        f"{out['device_ms']:.2f} ms in {out['kernels']} kernels, host clock "
+        f"{out['host_ms']:.1f} ms (runs {[round(x, 1) for x in host]}), "
+        f"{out['syncs']} host syncs ({dict(sites.most_common(6))}); "
+        f"hamming_best2_windowed {out['own_kernels']['hamming_best2_windowed']}"
+        f"; table in chiprun_out/profile_keyframe_event.txt")
+    return out
+
+
+def fuse_search_check(mapper, dev, k, hamming):
+    """The fuse passes' projection searches of one keyframe event, at their
+    own shapes (the forward pass's padded candidates, the reverse passes'
+    per-feature points against a neighbour's features), against the plain
+    version on the same inputs."""
+    import torch
+    calls = []
+    kernel = hamming.hamming_best2_windowed
+
+    def capture(*a):
+        calls.append(a)
+        return kernel(*a)
+
+    hamming.hamming_best2_windowed = capture
+    try:
+        mapper(dev).process_keyframe(k)
+    finally:
+        hamming.hamming_best2_windowed = kernel
+    if len(calls) < 2:
+        raise AssertionError(f"the event made {len(calls)} fuse searches")
+    shapes = []
+    for a in (calls[0], calls[-1]):
+        got = kernel(*a)
+        ref = hamming.hamming_best2_windowed_plain(*a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError("a fuse search differs from the plain "
+                                 "version")
+        shapes.append((int(a[0].shape[0]), int(a[7].shape[0]),
+                       int(a[6].sum()), int((got[0] < hamming.BIG).sum())))
+    log(f"fuse searches of the event against the plain version: equal at "
+        f"(queries, targets, valid queries, rows with a candidate) = "
+        f"{shapes} (forward, last reverse); {len(calls)} searches in all")
+    return dict(n_searches=len(calls), shapes=shapes, max_abs_err=0)
 
 
 def frontends_agree(fused, xla):
@@ -1094,9 +1472,19 @@ def profile_call(fn, table=None):
 
 
 def count_syncs(tk, imgs, frames):
-    """Synchronizing CUDA calls per frame, as PyTorch's sync debug mode
+    """Synchronizing CUDA calls per frame (sync_sites) over frames."""
+    sites = sync_sites(lambda: [tk.track_monocular(imgs[i], 0.05 * i)
+                                for i in frames])
+    n = sum(sites.values()) / len(frames)
+    log(f"host syncs per frame: {n:.2f} (sync debug mode, frames {frames}); "
+        f"by site: {dict(sites.most_common())}")
+    return n
+
+
+def sync_sites(fn):
+    """Synchronizing CUDA calls of fn(), as PyTorch's sync debug mode
     reports them, each placed at the innermost line of the port on the
-    Python stack."""
+    Python stack: a Counter by site."""
     import collections
     import traceback
     import torch
@@ -1116,14 +1504,10 @@ def count_syncs(tk, imgs, frames):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for i in frames:
-                tk.track_monocular(imgs[i], 0.05 * i)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    n = sum(sites.values()) / len(frames)
-    log(f"host syncs per frame: {n:.2f} (sync debug mode, frames {frames}); "
-        f"by site: {dict(sites.most_common())}")
-    return n
+    return sites
 
 
 def host_ms(fn, reps=5):
@@ -1277,16 +1661,23 @@ def main() -> int:
     log("phase 5 bootstrap path: from the first image")
     boot = bootstrap_path(dev)
     phase_done("phase 5")
+    log("phase 6 System: monocular, loop closing off, its own map")
+    sys_rec = system_path(dev)
+    phase_done("phase 6")
+    paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec))
     for r in rec:
-        r["launches"] = (res["launches"][r["name"]]
-                         + boot["launches"][r["name"]])
+        r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
+        r["launches_by_path"] = {path: run["launches"][r["name"]]
+                                 for path, run in paths}
         # device time per frame on rendered frames, beside "ms" (random
         # inputs of the same shapes): the searches' work depends on how
         # many pairs pass their gates
         r["real_frame_ms"] = {
             path: run["profile"]["own_kernels"][r["name"]]
-            for path, run in (("steady", res), ("bootstrap", boot))}
+            for path, run in paths}
         r["real_frame_ms"]["ref_kf_frame"] = boot["profile"]["ref_kf_frame"][
+            "own_kernels"][r["name"]]
+        r["real_frame_ms"]["keyframe_event"] = sys_rec["event_profile"][
             "own_kernels"][r["name"]]
         log(f"kernel {r['name']}: {r['ms']:.4f} ms on random inputs per "
             f"{r['unit']}; on rendered frames, per frame: "
@@ -1296,16 +1687,18 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "plain_event_ms", "atlas", "unit",
-            "real_frame_ms")
+            "launches_by_path", "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])
     boot_summary = {k: v for k, v in boot.items() if k != "launches"}
+    sys_summary = {k: v for k, v in sys_rec.items() if k != "launches"}
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rec],
                     "frame": summary, "bootstrap": boot_summary,
-                    "launches_by_path": {"steady": res["launches"],
-                                         "bootstrap": boot["launches"]},
+                    "system": sys_summary,
+                    "launches_by_path": {path: run["launches"]
+                                         for path, run in paths},
                     "bound_rates": rates,
                     "event_time_in_place_of_device_time": EVENT_FALLBACKS}))
     log(card)

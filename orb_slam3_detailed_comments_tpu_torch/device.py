@@ -36,6 +36,30 @@ def _as_i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32)
 
 
+_WORD_TYPES = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(bool))
+
+
+def upload_packed(arrays, device) -> list:
+    """Copy float32 / int32 / bool numpy arrays to the device in one
+    transfer; returns tensors of the arrays' shapes and types."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    for a in arrays:
+        if a.dtype not in _WORD_TYPES:
+            raise TypeError(f"upload_packed takes float32, int32 or bool "
+                            f"arrays, not {a.dtype}")
+    words = [(a.astype(np.int32) if a.dtype == bool else a.view(np.int32))
+             .reshape(-1) for a in arrays]
+    flat = torch.from_numpy(np.concatenate(words)).to(device)
+    out = []
+    for a, c in zip(arrays, torch.split(flat, [w.size for w in words])):
+        if a.dtype == np.float32:
+            c = c.view(torch.float32)
+        elif a.dtype == bool:
+            c = c != 0
+        out.append(c.reshape(a.shape))
+    return out
+
+
 def fetch_packed(parts) -> list:
     """Bring float32 / int32 / bool tensors to the host in one transfer;
     returns numpy arrays of the tensors' shapes and types."""

@@ -104,3 +104,31 @@ def normalize(R: torch.Tensor) -> torch.Tensor:
     r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True)
     r2 = torch.linalg.cross(r0, r1, dim=-1)
     return torch.stack([r0, r1, r2], dim=-2)
+
+
+def to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> quaternion [..., 4] (x, y, z, w).
+
+    Branch-free Shepperd's method: all four candidate quaternions are
+    computed and the best-conditioned one (largest pivot) is selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(pivot, parts):
+        h = torch.sqrt(torch.clamp(pivot, min=1e-12)) * 0.5
+        q = torch.stack([4.0 * h * h if p is None else p for p in parts],
+                        dim=-1)
+        return q / (4.0 * h[..., None])
+
+    q0 = cand(1.0 + tr, [m21 - m12, m02 - m20, m10 - m01, None])
+    q1 = cand(1.0 + m00 - m11 - m22, [None, m01 + m10, m02 + m20, m21 - m12])
+    q2 = cand(1.0 - m00 + m11 - m22, [m01 + m10, None, m12 + m21, m02 - m20])
+    q3 = cand(1.0 - m00 - m11 + m22, [m02 + m20, m12 + m21, None, m10 - m01])
+    pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], dim=-1)
+    best = torch.argmax(pivots, dim=-1)[..., None]
+    q = torch.where(best == 0, q0, torch.where(
+        best == 1, q1, torch.where(best == 2, q2, q3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

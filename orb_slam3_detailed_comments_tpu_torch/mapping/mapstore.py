@@ -1,12 +1,14 @@
 """Tensor map store: the SLAM map as fixed-capacity SoA arrays.
 
 Counterpart of ``mapping/mapstore.py`` of the JAX package, the subset that
-tracking, map initialisation and bundle adjustment use (reference:
-src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc).
+tracking, map initialisation, bundle adjustment and the local mapper use
+(reference: src/KeyFrame.cc, src/MapPoint.cc, src/Map.cc): insertion,
+culling with tombstones, point fusion, covisibility.
 Host bookkeeping runs on numpy arrays; ``device_points`` and
 ``device_kf_obs`` return tensors on the map's device, cached per
-``version``. Inertial fields and the native host library wait for later
-slices: every derived structure here is computed by the numpy paths.
+``version`` (a full upload when the version changed). Inertial fields and
+the native host library wait for later slices: every derived structure
+here is computed by the numpy paths.
 
 Descriptor arrays (``kf_feat_desc``, ``pt_desc``) hold the 256 bits as int32
 words; ``from_numpy`` / ``to_numpy`` convert the JAX package's uint32
@@ -17,6 +19,7 @@ feature i of keyframe k (or -1).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -111,7 +114,15 @@ class MapStore:
         self.pt_found = np.zeros(P, np.int32)     # matched-in-tracking count
         self.pt_visible = np.zeros(P, np.int32)   # predicted-visible count
         self.pt_replaced_by = np.full(P, -1, np.int32)
+        # (slot, epoch) of a culled keyframe -> (slot', epoch', R_rel, t_rel)
+        # through a surviving one, so that trajectory rows anchored to it
+        # can be replayed (reference: the spanning-tree parent chain of
+        # System::SaveTrajectoryEuRoC, System.cc:721)
+        self.tombstones: dict = {}
         self.version = 0
+        # bumped only on big corrections (loop closure, global BA, merge;
+        # none is ported yet): System.map_changed reads it
+        self.big_change_idx = 0
         self._scale_factors = cfg.scale ** np.arange(cfg.n_levels)
 
     # ---- exchange with the JAX package's map ------------------------------
@@ -121,7 +132,8 @@ class MapStore:
                    ) -> "MapStore":
         """The port's map from SoA arrays by attribute name (for a JAX
         ``MapStore`` m: ``vars(m)``). Arrays the port does not hold are
-        ignored; uint32 descriptor words become int32 with the same bits."""
+        ignored; uint32 descriptor words become int32 with the same bits.
+        ``tombstones`` and ``big_change_idx`` are taken too where given."""
         m = cls(cfg, device)
         for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
             if name not in arrays:
@@ -134,6 +146,9 @@ class MapStore:
             if name in _DESC_ARRAYS:
                 a = np.ascontiguousarray(a).view(np.int32)
             setattr(m, name, a.astype(mine.dtype, copy=True))
+        m.tombstones = {key: (s, e, np.array(R), np.array(t)) for key, (
+            s, e, R, t) in arrays.get("tombstones", {}).items()}
+        m.big_change_idx = int(arrays.get("big_change_idx", 0))
         m.version = int(arrays.get("version", 0)) + 1
         return m
 
@@ -151,14 +166,32 @@ class MapStore:
     def alloc_kf(self) -> int:
         free = np.where(~self.kf_valid)[0]
         if len(free) == 0:
-            raise RuntimeError("keyframe capacity exhausted")
+            self.grow(grow_kf=True)
+            free = np.where(~self.kf_valid)[0]
         return int(free[0])
 
     def alloc_points(self, n: int) -> np.ndarray:
         free = np.where(~self.pt_valid)[0]
-        if len(free) < n:
-            raise RuntimeError(f"point capacity exhausted ({n} > {len(free)})")
+        while len(free) < n:
+            self.grow(grow_pt=True)
+            free = np.where(~self.pt_valid)[0]
         return free[:n]
+
+    def grow(self, grow_kf: bool = False, grow_pt: bool = False):
+        """Double the keyframe and/or point capacity in place, as the JAX
+        store does: a long sequence never meets a capacity wall. The
+        device caches follow the version bump."""
+        cfg2 = dataclasses.replace(
+            self.cfg,
+            max_kf=self.cfg.max_kf * 2 if grow_kf else self.cfg.max_kf,
+            max_pt=self.cfg.max_pt * 2 if grow_pt else self.cfg.max_pt)
+        fresh = MapStore(cfg2, self.device)
+        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+            arr, new = getattr(self, name), getattr(fresh, name)
+            new[:len(arr)] = arr
+            setattr(self, name, new)
+        self.cfg = cfg2
+        self.version += 1
 
     @property
     def n_kf(self) -> int:
@@ -272,6 +305,141 @@ class MapStore:
         self.kf_feat_point[np.isin(self.kf_feat_point, ids)] = NO_POINT
         self.version += 1
 
+    def replace_point(self, old_id: int, new_id: int):
+        """Fuse old into new (reference: MapPoint::Replace). A keyframe that
+        already observes new_id drops its old_id link instead."""
+        mask = self.kf_feat_point == old_id
+        for k in np.where(mask.any(axis=1))[0]:
+            row = self.kf_feat_point[k]
+            row[row == old_id] = (NO_POINT if (row == new_id).any()
+                                  else new_id)
+        self.pt_found[new_id] += self.pt_found[old_id]
+        self.pt_visible[new_id] += self.pt_visible[old_id]
+        self.pt_valid[old_id] = False
+        self.pt_replaced_by[old_id] = new_id
+        self.version += 1
+
+    def fuse_observations(self, kf: int, pids, feats) -> int:
+        """Apply fuse matches into keyframe kf: candidate point pids[i],
+        matched at feature feats[i], either replaces the point already at
+        that feature (the more-observed one survives, reference
+        ORBmatcher::Fuse, ORBmatcher.cc:1325) or becomes a new observation.
+        Keeps one observation per point per keyframe and follows replace
+        forwarding. Returns the number of changes."""
+        obs = self.observation_counts().copy()
+        row = self.kf_feat_point[kf]
+        kf_pts = set(int(x) for x in row[row >= 0])
+        changed = 0
+        for pid, f in zip(pids, feats):
+            pid = self.resolve_pid(int(pid))
+            if pid < 0:
+                continue
+            f = int(f)
+            existing = int(self.kf_feat_point[kf, f])
+            if existing >= 0:
+                if existing == pid or not self.pt_valid[existing]:
+                    continue
+                keep, kill = ((pid, existing) if obs[pid] >= obs[existing]
+                              else (existing, pid))
+                self.replace_point(kill, keep)
+                obs[keep] += obs[kill]
+                obs[kill] = 0
+                row = self.kf_feat_point[kf]      # links were rewritten
+                kf_pts = set(int(x) for x in row[row >= 0])
+                changed += 1
+            elif pid not in kf_pts:
+                self.kf_feat_point[kf, f] = pid
+                kf_pts.add(pid)
+                obs[pid] += 1
+                changed += 1
+        if changed:
+            self.version += 1
+        return changed
+
+    def resolve_pid(self, pid: int) -> int:
+        """Follow replace_point forwarding to the surviving point; -1 if the
+        chain ends at a dead, unreplaced point (reference: the
+        MapPoint::GetReplaced loop of LoopClosing::SearchAndFuse)."""
+        hops = 0
+        while pid >= 0 and not self.pt_valid[pid] and hops < 32:
+            pid = int(self.pt_replaced_by[pid])
+            hops += 1
+        return pid if pid >= 0 and self.pt_valid[pid] else -1
+
+    # ---- keyframe culling ------------------------------------------------
+
+    def remove_keyframe(self, k: int):
+        """Cull a keyframe (reference: KeyFrame::SetBadFlag). Records a
+        tombstone so that trajectory rows anchored to it replay through its
+        most covisible surviving keyframe; points that lose their last
+        observer die, points it referenced re-anchor on a survivor."""
+        succ_ids, _ = self.covisibility(k, min_weight=1)
+        if len(succ_ids) == 0:
+            ids = self.kf_ids()
+            succ_ids = ids[ids != k]
+        if len(succ_ids) > 0:
+            s = int(succ_ids[0])
+            # T_k ∘ T_s^-1 at cull time
+            R_rel = self.kf_R[k] @ self.kf_R[s].T
+            t_rel = self.kf_t[k] - R_rel @ self.kf_t[s]
+            self.tombstones[(k, int(self.kf_epoch[k]))] = (
+                s, int(self.kf_epoch[s]), R_rel.copy(), t_rel.copy())
+        # keep the temporal chain connected across the cull (the visual
+        # branch of the JAX package's _merge_preintegration_chain)
+        for n in np.where(self.kf_prev == k)[0]:
+            self.kf_prev[n] = int(self.kf_prev[k])
+        owned = self.kf_feat_point[k]
+        owned = np.unique(owned[owned >= 0])
+        self.kf_valid[k] = False
+        self.kf_feat_point[k] = NO_POINT
+        self.kf_feat_valid[k] = False
+        refd = np.where(self.pt_valid & (self.pt_ref_kf == k))[0]
+        targets = np.union1d(owned[self.pt_valid[owned]], refd)
+        if len(targets):
+            ki, fi = np.nonzero((self.kf_feat_point >= 0)
+                                & self.kf_valid[:, None])
+            pids = self.kf_feat_point[ki, fi]
+            if len(pids) == 0:
+                self.remove_points(targets)
+            else:
+                order = np.argsort(pids, kind="stable")
+                ps, ks = pids[order], ki[order]
+                idx = np.searchsorted(ps, targets)
+                safe = np.minimum(idx, len(ps) - 1)
+                has = (idx < len(ps)) & (ps[safe] == targets)
+                self.remove_points(targets[~has])
+                re = np.isin(targets, refd) & has
+                self.pt_ref_kf[targets[re]] = ks[safe[re]]
+        self.version += 1
+
+    def resolve_kf_pose(self, slot: int, epoch: int):
+        """World->camera pose (R, t) of a keyframe incarnation, culled or
+        not, through tombstone chains of any depth (a visited set guards
+        against cycles); a resolved chain is compressed to point straight
+        at the live keyframe. None if it does not resolve."""
+        key0 = (slot, epoch)
+        R_acc = np.eye(3, dtype=np.float32)
+        t_acc = np.zeros(3, np.float32)
+        seen = set()
+        while True:
+            if self.kf_valid[slot] and self.kf_epoch[slot] == epoch:
+                if (slot, epoch) != key0 and key0 in self.tombstones:
+                    self.tombstones[key0] = (slot, epoch,
+                                             R_acc.copy(), t_acc.copy())
+                return (R_acc @ self.kf_R[slot],
+                        R_acc @ self.kf_t[slot] + t_acc)
+            key = (slot, epoch)
+            if key in seen:
+                return None
+            seen.add(key)
+            tomb = self.tombstones.get(key)
+            if tomb is None:
+                return None
+            s, e, R_rel, t_rel = tomb
+            t_acc = R_acc @ t_rel + t_acc
+            R_acc = R_acc @ R_rel
+            slot, epoch = s, e
+
     # ---- derived structures ----------------------------------------------
 
     def observation_counts(self) -> np.ndarray:
@@ -313,6 +481,15 @@ class MapStore:
         ids = np.where(w >= min_weight)[0]
         order = np.argsort(-w[ids])
         return ids[order], w[ids][order]
+
+    def covisibility_batch(self, ks, min_weight: int = 15) -> list:
+        """covisibility() of several keyframes: [(ids, weights), ...]."""
+        return [self.covisibility(int(k), min_weight) for k in ks]
+
+    def point_observers(self, pid: int) -> np.ndarray:
+        """Live keyframes observing point pid."""
+        return np.where((self.kf_feat_point == pid).any(axis=1)
+                        & self.kf_valid)[0]
 
     def observers_of_points(self, pt_ids) -> np.ndarray:
         """[K] bool: live KFs observing any of pt_ids (the local-BA frontier
@@ -362,6 +539,10 @@ class MapStore:
                     errs.append(f"KF {k} prev link -> dead KF {p}")
                 elif self.kf_ts[p] >= self.kf_ts[k]:
                     errs.append(f"KF {k} prev link not back in time")
+        # tombstone chains (culled keyframes) must resolve acyclically
+        for (slot, epoch) in list(self.tombstones):
+            if self.resolve_kf_pose(slot, epoch) is None:
+                errs.append(f"tombstone ({slot},{epoch}) does not resolve")
         return errs
 
     # ---- maintenance -----------------------------------------------------

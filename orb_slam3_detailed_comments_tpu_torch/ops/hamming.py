@@ -5,8 +5,9 @@ Counterpart of ``ops/pallas_hamming.py`` of the JAX package.
 stages; ``hamming_best2`` is the unmasked branch of ``matching.match_nn``.
 
 Descriptors are [N, 8] int32 tensors carrying the 256 bits. The plain
-versions take the popcount through a 256-entry table over a uint8 view
-(torch has no popcount).
+versions count bits by SWAR steps on the XOR words (torch has no
+popcount); ``popcount32``, for the point bitsets, through a 256-entry table
+over a uint8 view.
 
 Output contract, shared by kernels and plain versions: a gated-out pair
 counts as ``BIG``; ``d1`` is the minimum, ``i1`` the first index of the
@@ -48,9 +49,21 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return lut[b].reshape(*x.shape, 4).sum(-1, dtype=torch.int32)
 
 
+def _xor_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance of broadcast [..., 8] int32 word rows: the bit
+    count of the XOR words by SWAR steps, in int64 so that no step
+    overflows (a quarter of a byte table's memory traffic)."""
+    x = (a ^ b).to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = (x + (x >> 16)) & 0x3F
+    return x.sum(-1, dtype=torch.int32)
+
+
 def _dist_rows(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    x = da[:, None, :] ^ db[None, :, :]
-    return popcount32(x).sum(-1, dtype=torch.int32)
+    return _xor_dist(da[:, None, :], db[None, :, :])
 
 
 def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
@@ -126,7 +139,11 @@ def hamming_best2_windowed_plain(da, q_uv, q_lv, q_r, q_lo, q_hi, qv,
     dl = t_lv[None, :] - q_lv[:, None]
     ok = ((du <= r) & (dv <= r) & (dl >= q_lo[:, None]) & (dl <= q_hi[:, None])
           & tv[None, :] & qv[:, None])
-    return masked_best2(hamming_matrix(da, db), ok)
+    # distances of the admitted pairs only: the gates admit a few percent
+    qi, ti = ok.nonzero(as_tuple=True)
+    dist = torch.full(ok.shape, BIG, dtype=torch.int32, device=ok.device)
+    dist[qi, ti] = _xor_dist(da[qi], db[ti])
+    return masked_best2(dist, ok)
 
 
 @functools.cache

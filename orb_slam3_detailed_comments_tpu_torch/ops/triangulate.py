@@ -8,6 +8,8 @@ batched eigendecomposition.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..lie import SE3
@@ -47,6 +49,21 @@ def _det3(m: torch.Tensor) -> torch.Tensor:
                               - m[..., 1, 1] * m[..., 2, 0]))
 
 
+@functools.lru_cache(maxsize=8)
+def _minor_index(device: torch.device, dtype: torch.dtype):
+    """Row and column indices [4, 4, 3, 3] of the 16 3x3 minors of a 4x4
+    matrix, and the cofactor signs [4, 4], on the device once (indexing
+    with Python lists would upload them, a host sync, at every call)."""
+    keep = [[r for r in range(4) if r != i] for i in range(4)]
+    rows = torch.tensor([[[[keep[i][a]] * 3 for a in range(3)]
+                          for _ in range(4)] for i in range(4)])
+    cols = torch.tensor([[[keep[j]] * 3 for j in range(4)]
+                         for _ in range(4)])
+    sign = torch.tensor([[(-1.0) ** (i + j) for j in range(4)]
+                         for i in range(4)], dtype=dtype)
+    return rows.to(device), cols.to(device), sign.to(device)
+
+
 def _null4(M: torch.Tensor) -> torch.Tensor:
     """Null direction of batched symmetric PSD [.., 4, 4] matrices whose
     smallest eigenvalue is far below the next (the DLT normal matrix of a
@@ -56,13 +73,10 @@ def _null4(M: torch.Tensor) -> torch.Tensor:
     smallest-eigenvalue term, so a well-scaled column of the closed-form
     adjugate is the null direction; one more multiply by adj squares the
     eigengap."""
-    def cof(i, j):
-        rows = [r for r in range(4) if r != i]
-        cols = [c for c in range(4) if c != j]
-        return ((-1.0) ** (i + j)) * _det3(M[..., rows, :][..., :, cols])
-
-    adj = torch.stack([torch.stack([cof(j, i) for j in range(4)], -1)
-                       for i in range(4)], -2)
+    rows, cols, sign = _minor_index(M.device, M.dtype)
+    # cofactor (i, j) = sign * det of M without row i and column j; the
+    # adjugate is the cofactors' transpose
+    adj = (sign * _det3(M[..., rows, cols])).transpose(-1, -2)
     diag = torch.abs(torch.diagonal(adj, dim1=-2, dim2=-1))
     k = torch.argmax(diag, dim=-1)
     col = torch.gather(adj, -1, k[..., None, None].expand(

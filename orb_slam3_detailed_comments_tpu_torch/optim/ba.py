@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..lie import SE3, se3
 from ..models import cameras
 from . import reproj
@@ -72,10 +73,14 @@ _PROBLEM_DTYPES = dict(
 
 def problem_from_numpy(arrays: dict, device="cpu") -> BAProblem:
     """A BAProblem from numpy arrays by field name (for a JAX ``BAProblem``
-    p: ``{k: np.asarray(v) for k, v in p._asdict().items()}``)."""
-    return BAProblem(**{
-        k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device, dt)
-        for k, dt in _PROBLEM_DTYPES.items()})
+    p: ``{k: np.asarray(v) for k, v in p._asdict().items()}``), copied
+    to the device in one transfer."""
+    np_types = {torch.float32: np.float32, torch.int32: np.int32,
+                torch.bool: bool}
+    parts = device_mod.upload_packed(
+        [np.asarray(arrays[k]).astype(np_types[dt], copy=False)
+         for k, dt in _PROBLEM_DTYPES.items()], device)
+    return BAProblem(**dict(zip(_PROBLEM_DTYPES, parts)))
 
 
 def _inv3x3(M: torch.Tensor) -> torch.Tensor:
@@ -299,7 +304,8 @@ def _ba_solve_tables(prob: BAProblem, cam: cameras.CameraParams, iters: int,
 
     def run(kf_R, kf_t, points, w_t, n):
         cost = _robust_cost(TL, kf_R, kf_t, points, w_t, cam, delta2)
-        lam = torch.tensor(lm_lambda0, dtype=torch.float32, device=dev)
+        # filled on the device: a tensor from a Python number is an upload
+        lam = torch.full((), lm_lambda0, dtype=torch.float32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(n):
             U, b_c, V, b_p, Wd = assemble_normal_equations(

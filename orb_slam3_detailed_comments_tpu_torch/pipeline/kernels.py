@@ -1,12 +1,13 @@
-"""The per-frame device programs of steady-state monocular tracking.
+"""The device programs of monocular tracking and mapping.
 
 Counterpart of ``pipeline/kernels.py`` of the JAX package (visual programs
-only): ``prepare_frame`` (ORB extraction + undistortion) and
+only): ``prepare_frame`` (ORB extraction + undistortion),
 ``track_step_visual`` (motion-model projection search + pose GN, local-
 keyframe selection on point bitsets, local-map projection search + pose
-GN). PyTorch runs them eagerly; apart from the host-side id lists they read
-and the one packed fetch the tracker makes, they run on the tensors'
-device without a host sync.
+GN) and ``search_and_triangulate`` (new points from a keyframe pair).
+PyTorch runs them eagerly; apart from the host-side id lists they read and
+the one packed fetch their caller makes, they run on the tensors' device
+without a host sync.
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..lie import SE3
+from ..lie import SE3, so3
 from ..models import cameras
-from ..ops import extractor, hamming, matching
+from ..ops import extractor, hamming, matching, triangulate
 from ..ops.topk import stable_top
 from ..optim import pose_opt
 
@@ -309,3 +310,72 @@ def level_weights(n_levels: int = 8, scale: float = 1.2):
     optimization."""
     sf = scale ** np.arange(n_levels, dtype=np.float32)
     return sf.astype(np.float32), (1.0 / (sf * sf)).astype(np.float32)
+
+
+class TriangulationResult(NamedTuple):
+    idx_b: torch.Tensor    # [N] matched feature in keyframe b per feature of a
+    ok: torch.Tensor       # [N] accepted new point
+    xyz: torch.Tensor      # [N, 3] world coordinates
+
+
+def search_and_triangulate_batch(T_a: SE3, T_bs: SE3, desc_a, xyn_a, level_a,
+                                 free_a, desc_bs, xyn_bs, level_bs, free_bs,
+                                 inv_sigma2_a, inv_sigma2_bs,
+                                 focal: float = 460.0) -> TriangulationResult:
+    """search_and_triangulate of keyframe a against B neighbours: T_bs,
+    desc_bs, ... carry a leading [B] axis. One pair at a time, so that the
+    dense [N, N] search of one pair is all that is alive at once; results
+    stacked on the device, ready for one packed fetch."""
+    outs = [search_and_triangulate(
+        T_a, SE3(T_bs.R[j], T_bs.t[j]), desc_a, xyn_a, level_a, free_a,
+        desc_bs[j], xyn_bs[j], level_bs[j], free_bs[j], inv_sigma2_a,
+        inv_sigma2_bs[j], focal=focal) for j in range(desc_bs.shape[0])]
+    return TriangulationResult(*(torch.stack(parts) for parts in zip(*outs)))
+
+
+def search_and_triangulate(T_a: SE3, T_b: SE3, desc_a, xyn_a, level_a,
+                           free_a, desc_b, xyn_b, level_b, free_b,
+                           inv_sigma2_a, inv_sigma2_b,
+                           focal: float = 460.0) -> TriangulationResult:
+    """Epipolar-constrained matching + triangulation between two keyframes
+    (reference: ORBmatcher::SearchForTriangulation, ORBmatcher.cc:1045 +
+    LocalMapping::CreateNewMapPoints, LocalMapping.cc:506). free_*: the
+    features not yet associated with a map point. The masked search is
+    ``matching.match_nn`` with ``extra_mask`` (dense, as in the JAX
+    package: no Pallas kernel there either)."""
+    # relative pose b <- a; E maps a-rays to epipolar lines in b
+    T_ba = T_b.compose(T_a.inverse())
+    E = so3.hat(T_ba.t) @ T_ba.R
+    ones = torch.ones_like(xyn_a[:, :1])
+    Xa = torch.cat([xyn_a, ones], dim=-1)
+    Xb = torch.cat([xyn_b, ones], dim=-1)
+    l_b = Xa @ E.T                                        # [Na, 3]
+    num = l_b @ Xb.T                                      # [Na, Nb]
+    d2 = num * num / torch.clamp(
+        (l_b[:, 0] ** 2 + l_b[:, 1] ** 2)[:, None], min=1e-12)
+    # pixel-scaled epipolar gate at the b feature's level
+    epi_ok = d2 * focal * focal < 3.84 / inv_sigma2_b[None, :]
+
+    res = matching.match_nn(desc_a, free_a, desc_b, free_b,
+                            max_dist=matching.TH_LOW, ratio=0.9, mutual=True,
+                            extra_mask=epi_ok)
+    idx = res.idx.long()
+    xn_b_matched = xyn_b[idx]
+    # the DLT in float64: in float32 the adjugate's null direction loses
+    # more than 1e-4 m on some low-parallax pairs the gates still accept
+    # (ROADMAP.md section 3)
+    f64 = lambda T: SE3(T.R.double(), T.t.double())
+    X, tri_ok = triangulate.triangulate(f64(T_a), xyn_a.double(), f64(T_b),
+                                        xn_b_matched.double())
+    X = X.float()
+    # acceptance: cheirality, parallax, reprojection in both views
+    pa = T_a.apply(X)
+    pb = T_b.apply(X)
+    cosp = triangulate.parallax_cos(T_a, T_b, X)
+    ra = pa[:, :2] / torch.clamp(pa[:, 2:3], min=1e-9) - xyn_a
+    rb = pb[:, :2] / torch.clamp(pb[:, 2:3], min=1e-9) - xn_b_matched
+    ea = torch.sum(ra * ra, -1) * focal * focal * inv_sigma2_a
+    eb = torch.sum(rb * rb, -1) * focal * focal * inv_sigma2_b[idx]
+    ok = (res.valid & tri_ok & (pa[:, 2] > 0) & (pb[:, 2] > 0)
+          & (cosp < 0.9998) & (ea < 5.991) & (eb < 5.991))
+    return TriangulationResult(res.idx, ok, X)

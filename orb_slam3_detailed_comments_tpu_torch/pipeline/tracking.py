@@ -9,11 +9,14 @@ RECENTLY_LOST, LOST. From its first image a tracker builds its own map:
   (``models/twoview.py``) -> two keyframes + points -> bundle adjustment
   (``local_mapping.run_local_ba``) -> the next frame is tracked against
   the reference keyframe and the local map -> from then on each frame takes
-  the fused motion-model + local-map step (``kernels.track_step_visual``).
+  the fused motion-model + local-map step (``kernels.track_step_visual``)
+  -> a tracked frame becomes a keyframe when ``_need_new_keyframe`` says so
+  (``_create_new_keyframe``), and its id joins ``new_keyframes``, the queue
+  that ``System`` drains into the ``LocalMapper``.
 
 A tracker can also start from a map built elsewhere (``start_from_map``).
-The inertial, localisation-mode and relocalisation branches and keyframe
-insertion belong to later slices: a lost tracker stays lost.
+The inertial, localisation-mode and relocalisation branches belong to
+later slices: a lost tracker stays lost.
 
 Per steady frame the host makes three copies: the image up, the small
 inputs (predicted pose, stage-1 candidate ids and angles) up as one packed
@@ -49,6 +52,9 @@ LOST = 4
 @dataclass
 class TrackingConfig:
     n_features: int = 1024
+    max_frames: int = 20          # keyframe policy c1a: fps (mMaxFrames)
+    min_frames: int = 0
+    ref_ratio: float = 0.9        # mono thRefRatio (reference: Tracking.cc:3737)
     min_init_matches: int = 100   # reference: Tracking.cc:2825,2859
     motion_radius: float = 15.0   # px search radius, motion model (mono)
     local_radius: float = 4.0     # px search radius, local map
@@ -56,6 +62,8 @@ class TrackingConfig:
     min_inliers_mm: int = 20
     min_inliers_local: int = 30
     recently_lost_frames: int = 100
+    periodic_kf: bool = True      # a keyframe every max_frames regardless
+                                  # of c2 (see _need_new_keyframe)
     frontend: str = "fused"       # extractor front end: "fused" or "xla"
 
 
@@ -106,9 +114,12 @@ class Tracker:
         self.init_ref: Optional[FrameRecord] = None
         self.ref_kf = -1
         self.last_kf_id = -1
+        self.last_kf_frame_id = -999
         self.frame_id = 0
         self.lost_count = 0
         self.n_steps = 0                 # fused steps dispatched
+        self.n_ref_kf_searches = 0       # reference-keyframe searches
+        self.n_local_map_searches = 0    # local-map stages outside the step
         self.n_candidates2 = 0           # stage-2 candidates of the last step
         self.n_init_matches = 0          # matches given to the two-view solve
         self.n_init_good = 0             # of them triangulated, before BA
@@ -117,6 +128,7 @@ class Tracker:
         self.trajectory: list = []
         # per-frame stats rows: (ts, state, n_features, n_matches)
         self.track_stats: list = []
+        self.new_keyframes: list = []    # queue to local mapping
         self.radius_scale, self.inv_sigma2 = kernels.level_weights(
             self.orb_cfg.n_levels, self.orb_cfg.scale)
         self._inv_sigma2_dev = torch.from_numpy(self.inv_sigma2).to(self.device)
@@ -142,6 +154,7 @@ class Tracker:
                                 np.full(N, -1, np.int32), ts, -1)
         self.velocity = velocity or _identity_np()
         self.last_kf_id = self.ref_kf = int(last_kf_id)
+        self.last_kf_frame_id = self.frame_id - 1
         self.state = OK
         self._seed_from_kfs = True
 
@@ -207,8 +220,8 @@ class Tracker:
                 self.velocity = (None if was_lost else _compose_np(
                     self.cur_T, _inverse_np(self.last.T_cw)))
             self._update_found_counters()
-            # _need_new_keyframe always answers False in this slice:
-            # keyframe decision and insertion are not ported yet
+            if self._need_new_keyframe():
+                self._create_new_keyframe(ts, fid)
             self.last = FrameRecord(self.cur_T, self.cur_match, ts, fid,
                                     angles=self._cur_angles,
                                     prepared=self.cur_prep)
@@ -350,6 +363,7 @@ class Tracker:
 
         self.ref_kf = k2
         self.last_kf_id = k2
+        self.last_kf_frame_id = fid
         T2 = SE3(m.kf_R[k2].copy(), m.kf_t[k2].copy())
         self.cur_T = T2
         self.cur_prep = f2prep
@@ -360,6 +374,75 @@ class Tracker:
                                 angles=self._cur_angles, prepared=f2prep)
         self.velocity = None
         self.state = OK
+        self.new_keyframes.extend([k1, k2])
+
+    # ------------------------------------------------------------------
+    def reset_for_new_map(self, new_map: MapStore):
+        """Rebind to a fresh, empty map and restart initialisation
+        (reference: Tracking::CreateMapInAtlas, Tracking.cc:3093). The frame
+        counter and the trajectory log continue."""
+        if new_map.device != self.device:
+            raise ValueError(f"map lives on {new_map.device}, tracker on "
+                             f"{self.device}")
+        self.map = new_map
+        self.state = NOT_INITIALIZED
+        self.velocity = None
+        self.last = None
+        self.init_ref = None
+        self.ref_kf = -1
+        self.last_kf_frame_id = self.frame_id
+        self.last_kf_id = -1
+        self.lost_count = 0
+        self._seed_from_kfs = False
+
+    def _need_new_keyframe(self) -> bool:
+        """(reference: Tracking::NeedNewKeyFrame, Tracking.cc:3625; the
+        monocular visual branch)"""
+        n_tracked = int((self.cur_match >= 0).sum())
+        # only reference points with >= minObs observers count: 3, or 2
+        # while the map has <= 2 keyframes (Tracking.cc:3659)
+        min_obs = 3 if self.map.n_kf > 2 else 2
+        # c2 is anchored on the strongest keyframe of the local window, not
+        # only the (possibly brand-new) reference keyframe, whose count
+        # shrinks in lockstep with the frame's; the anchor count changes
+        # only with the map, so it is cached per (ref, map, version)
+        key = (self.ref_kf, id(self.map), self.map.version, min_obs)
+        if getattr(self, "_ref_tracked_key", None) == key:
+            ref_tracked = self._ref_tracked
+        else:
+            obs = self.map.observation_counts()
+            covis_ids, _ = self.map.covisibility(self.ref_kf, min_weight=15)
+            ref_tracked = 0
+            for a in [self.ref_kf] + [int(x) for x in covis_ids[:5]]:
+                if a < 0 or not self.map.kf_valid[a]:
+                    continue
+                pts = self.map.kf_feat_point[a]
+                pts = pts[pts >= 0]
+                ref_tracked = max(ref_tracked,
+                                  int((obs[pts] >= min_obs).sum()))
+            self._ref_tracked_key = key
+            self._ref_tracked = ref_tracked
+        c1a = self.frame_id >= self.last_kf_frame_id + self.cfg.max_frames
+        c1b = self.frame_id >= self.last_kf_frame_id + self.cfg.min_frames + 1
+        c2 = n_tracked < self.cfg.ref_ratio * ref_tracked and n_tracked > 15
+        # periodic floor: after max_frames without a keyframe, insert even
+        # if tracking has not decayed (the JAX package's deviation from the
+        # reference's pure-c2 gate; keyframe culling removes the excess)
+        periodic = self.cfg.periodic_kf and c1a and n_tracked > 15
+        return ((c1a or c1b) and c2) or periodic
+
+    def _create_new_keyframe(self, ts, fid):
+        """(reference: Tracking::CreateNewKeyFrame, Tracking.cc:3826): the
+        frame's features come down in one packed fetch."""
+        f = _frame_to_host(self.cur_prep)
+        k = self.map.add_keyframe(
+            np.asarray(self.cur_T.R), np.asarray(self.cur_T.t), ts, fid,
+            f["xy_ud"], f["xyn"], f["level"], f["angle"], f["desc"],
+            f["valid"], self.cur_match.astype(np.int32))
+        self.ref_kf = k
+        self.last_kf_frame_id = fid
+        self.last_kf_id = k
+        self.new_keyframes.append(k)
 
     # ------------------------------------------------------------------
     def _pose_to_device(self, T: SE3) -> SE3:
@@ -513,6 +596,7 @@ class Tracker:
         res = matching.match_nn(
             prep.feat.desc, prep.feat.valid, kf_desc, kf_d[9 * N:] > 0,
             max_dist=matching.TH_LOW, ratio=0.7, mutual=True)
+        self.n_ref_kf_searches += 1
         # orientation-consistency gate (reference: the mbCheckOrientation
         # pass of SearchByBoW, ORBmatcher.cc:259,404-424)
         dang = kf_angle[res.idx.long()] - prep.feat.angle
@@ -576,6 +660,7 @@ class Tracker:
         radius = self._radii_dev[1.0][0 if widen else 1]
         res = self._run_track(self.cur_prep, T_d, ids_d, proj, radius,
                               prior=self.cur_match)
+        self.n_local_map_searches += 1
         # one packed transfer for the whole stage
         match, R_cw, t_cw, visible, cur_ang, cur_valid = device_mod.fetch_packed(
             [res.match_pt, res.T_cw_R, res.T_cw_t, proj.visible,

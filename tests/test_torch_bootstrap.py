@@ -8,8 +8,9 @@ Both trackers are held to the same gates, not to identical trajectories:
 initialised within 22 frames, >= 40 points after the initial BA, a
 consistent map, the next frame tracked, >= 5 further frames tracked,
 scale-aligned ATE < 0.05 m (the gate of ``tests/test_pipeline_mono.py``).
-The JAX tracker inserts keyframes while it tracks and the port does not
-yet, so later frames are not compared.
+Both trackers insert keyframes while they track (neither runs a local
+mapper): the port's keyframes are taken at the same frames as the JAX
+tracker's.
 
 On the map that the JAX tracker built (loaded into the port through
 ``MapStore.from_numpy``) the two packages are compared step by step:
@@ -103,6 +104,7 @@ def runs():
                            ref_kf=jtk.ref_kf,
                            last_R=np.asarray(jtk.last.T_cw.R).copy(),
                            last_t=np.asarray(jtk.last.T_cw.t).copy())
+    jax_run["kf_frames"] = sorted(jm.kf_frame_id[jm.kf_valid].tolist())
 
     m = mapstore.MapStore(mapstore.MapConfig(**MAP_KW), "cpu")
     tk = tracking.Tracker(CAM, m, tracking.TrackingConfig(
@@ -116,7 +118,8 @@ def runs():
         if T is not None and torch_run["init_at"] is None:
             torch_run.update(init_at=i, n_points=m.n_points,
                              errs=m.check_invariants())
-    torch_run.update(tracker=tk, map=m)
+    torch_run.update(tracker=tk, map=m,
+                     kf_frames=sorted(m.kf_frame_id[m.kf_valid].tolist()))
     return dict(jax=jax_run, torch=torch_run, C=C)
 
 
@@ -147,7 +150,10 @@ def test_port_takes_reference_keyframe_then_steady_steps(runs):
     i0, steps, tk = run["init_at"], run["steps"], run["tracker"]
     assert steps[i0 + 1] == 0                  # reference KF + local map
     assert steps[i0 + 2] == 1 and steps[i0 + 5] == 4
-    assert run["map"].n_kf == 2                # no keyframe insertion yet
+    # keyframes inserted while tracking, at the JAX tracker's frames
+    assert run["map"].n_kf > 2
+    assert run["kf_frames"] == runs["jax"]["kf_frames"]
+    assert tk.new_keyframes == list(run["map"].kf_ids())
     assert len(tk.trajectory) == len(tk.track_stats) == sum(
         T is not None for T in run["poses"])
     ts_, _, rk, _, R_cr, t_cr, state = tk.trajectory[1]

@@ -92,7 +92,8 @@ def test_every_kernel_source_is_registered():
 
 @pytest.mark.parametrize("module", [
     "ops.frontend", "ops.triangulate", "optim.ba", "models.twoview",
-    "pipeline.local_mapping", "utils.evaluate_ate"])
+    "pipeline.local_mapping", "utils.evaluate_ate", "pipeline.system",
+    "mapping.atlas", "utils.timing"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"

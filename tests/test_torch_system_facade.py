@@ -1,0 +1,153 @@
+"""The port's System facade, on the CPU at the small size of
+``test_torch_system.py``: the mirrors of ``tests/test_pipeline_mono.py``'s
+``test_system_facade_api`` (map_changed, reset_active_map and its purged
+frame log, reset, shutdown) and ``test_pipelined_iter_matches_online``
+(track_monocular_iter yields the online poses bit for bit), and the
+configurations it refuses: each raises NotImplementedError naming the
+ROADMAP item that brings it, none is quietly ignored, and without a card
+nothing carries on on the CPU unless asked.
+"""
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_detailed_comments_tpu_torch.mapping import atlas, mapstore
+from orb_slam3_detailed_comments_tpu_torch.models import cameras
+from orb_slam3_detailed_comments_tpu_torch.pipeline import system, tracking
+from orb_slam3_detailed_comments_tpu_torch.utils import synth_render
+
+torch.set_num_threads(2)
+
+CAM_KW = dict(fx=229.0, fy=228.5, cx=188.0, cy=120.0, width=376, height=240)
+CAM = cameras.pinhole(**CAM_KW)
+N_FEAT = 512
+
+
+def _system(**kw):
+    return system.System(
+        CAM, system.MONOCULAR,
+        map_cfg=mapstore.MapConfig(max_kf=32, max_pt=2048, n_feat=N_FEAT),
+        tracking_cfg=tracking.TrackingConfig(n_features=N_FEAT,
+                                             min_init_matches=50),
+        enable_loop_closing=False, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    planes = synth_render.default_world(np.random.default_rng(3))
+    R, t = synth_render.orbit_trajectory(60)
+    return [synth_render.render_frame_raycast(CAM, planes, R[i], t[i])[0]
+            for i in range(12)]
+
+
+def test_system_facade_api(frames):
+    slam = _system()
+    assert slam.get_image_scale() == 1.0
+    assert slam.get_time_from_imu_init() == 0.0
+    assert not slam.is_shutdown()
+    for i, img in enumerate(frames[:8]):
+        slam.track_monocular(img, i * 0.05)
+    assert slam.n_keyframes > 0
+    assert not slam.map_changed()          # no loop / GBA / merge happened
+    slam.map.big_change_idx += 1           # as an applied global BA would
+    assert slam.map_changed()
+    assert not slam.map_changed()          # latched until the next bump
+
+    assert len(slam.trajectory_tum()) > 0
+    slam.reset_active_map()
+    assert slam.n_keyframes == 0 and slam.map.big_change_idx == 1
+    # rows of the reset map are purged, not resolved against the fresh
+    # map's reused (slot, epoch) keyframes
+    assert len(slam.trajectory_tum()) == 0
+    assert slam.tracker.map is slam.map is slam.local_mapper.map
+    for i, img in enumerate(frames[:8]):   # re-initialises cleanly
+        slam.track_monocular(img, 1.0 + i * 0.05)
+    assert slam.n_keyframes > 0
+    rows = slam.trajectory_tum()
+    assert rows and all(r[0] >= 1.0 for r in rows)
+
+    slam.reset()
+    assert len(slam.atlas.maps) == 1 and slam.n_keyframes == 0
+    assert slam.tracker.trajectory == [] and slam.tracker.map is slam.map
+    slam.shutdown()
+    assert slam.is_shutdown() and slam.is_finished()
+
+
+def test_pipelined_iter_matches_online(frames):
+    a = _system()
+    poses_a = [a.track_monocular(img, i * 0.05)
+               for i, img in enumerate(frames)]
+    b = _system()
+    poses_b = list(b.track_monocular_iter(
+        (img, i * 0.05) for i, img in enumerate(frames)))
+    assert len(poses_b) == len(frames)
+    assert sum(p is not None for p in poses_a) >= 8
+    for pa, pb in zip(poses_a, poses_b):
+        if pa is None:
+            assert pb is None
+        else:
+            np.testing.assert_array_equal(pa, pb)
+    assert a.n_keyframes == b.n_keyframes and a.n_map_points == b.n_map_points
+
+
+def test_lost_map_is_reset_or_kept(frames):
+    """A lost tracker on a poor map resets it in place; on a rich map
+    (> 10 keyframes) the Atlas keeps it and starts a new one."""
+    slam = _system()
+    for i, img in enumerate(frames[:6]):
+        slam.track_monocular(img, i * 0.05)
+    assert slam.n_keyframes > 0
+    slam.tracker.state = tracking.LOST
+    slam._post_track(None)
+    assert len(slam.atlas.maps) == 1 and slam.n_keyframes == 0
+    assert slam.tracker.state == tracking.NOT_INITIALIZED
+    slam.map.kf_valid[:11] = True          # stand-in for a rich map
+    slam.tracker.state = tracking.LOST
+    slam._post_track(None)
+    assert len(slam.atlas.maps) == 2 and slam.atlas.active_id == 1
+    assert slam.map.map_id == 1 and slam.map.n_kf == 0
+    assert slam.map.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(sensor=system.STEREO), "item 9"),
+    (dict(sensor=system.RGBD), "item 9"),
+    (dict(sensor=system.IMU_MONOCULAR), "item 11"),
+    (dict(sensor=system.IMU_STEREO), "item 11"),
+    (dict(sensor=system.IMU_RGBD), "item 11"),
+    (dict(enable_loop_closing=True), "item 10"),
+    (dict(vocab_path="ORBvoc.txt"), "item 10"),
+    (dict(async_mapping=True), "item 10"),
+])
+def test_unported_configurations_raise(kw, item):
+    args = dict(enable_loop_closing=False, device="cpu")
+    args.update(kw)
+    sensor = args.pop("sensor", system.MONOCULAR)
+    with pytest.raises(NotImplementedError, match=item):
+        system.System(CAM, sensor, **args)
+
+
+def test_loop_closing_is_on_by_default_and_refused():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        system.System(CAM, system.MONOCULAR, device="cpu")
+    with pytest.raises(ValueError):
+        system.System(CAM, 17, enable_loop_closing=False, device="cpu")
+
+
+def test_imu_input_raises(frames):
+    slam = _system()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        slam.track_monocular(frames[0], 0.0, imu=(np.zeros((1, 3)),) * 3)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        list(slam.track_monocular_iter([(frames[0], 0.0, object())]))
+
+
+def test_system_and_atlas_default_to_the_card():
+    cfg = mapstore.MapConfig(max_kf=4, max_pt=64, n_feat=32)
+    if torch.cuda.is_available():
+        assert atlas.Atlas(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        atlas.Atlas(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        system.System(CAM, system.MONOCULAR, enable_loop_closing=False)
