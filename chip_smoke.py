@@ -14,9 +14,14 @@ Phases, each of which raises on failure:
      dense_frontend both level by level and as the frame's one call for all
      levels; cell_topk and gather_patches as the frame's one call over the 8
      levels (all-zero, tied, negative and -inf cells, content edges, corners
-     outside the image), over tables of 1 and 16 levels, refusing 17, and
-     in their one-level cases (the [C, 1024] matrix; the "xla" front end's
-     atlas). Timed as device time
+     outside the image), over tables of 1 and 16 levels (gather_patches
+     refusing 17, cell_topk taking 17 in two launches), cell_topk also at
+     cells 16, 48, 64, 80 and 24 (the last on its plain version, the shape
+     rule), and in their one-level cases (the [C, 1024], [C, 384] and
+     [C, 2304] matrices; the "xla"
+     front end's atlas; the stereo matcher's 12x12 and 12x22 windows of one
+     image, at corners clipped as ops/stereo.py clips them). Timed as
+     device time
      (torch.profiler, the "ms" of the JSON record) and with CUDA events
      around the host's calls (launch gaps included), beside the plain
      version, a PyTorch library call where one computes the same function,
@@ -55,10 +60,26 @@ Phases, each of which raises on failure:
      clock, host syncs; chiprun_out/profile_keyframe_event.txt), and its
      fuse searches held against the plain version at their own shapes; 3
      steady frames of the grown map profiled
-     (chiprun_out/profile_frames_system.txt).
+     (chiprun_out/profile_frames_system.txt); the replayed event's fuse
+     matches that differ between card and CPU are named, each with its
+     search, projection and Hamming distance;
+  7. stereo and RGB-D: System(cam, STEREO, baseline=0.11) and
+     System(cam, RGBD, ...) on the 40-frame orbit of world seed 9, and the
+     two-camera KB8 rig System(kb8, STEREO, camera2=kb8, T_c1c2=...) on 30
+     frames of world seed 17 (the cases of test_pipeline_stereo_rgbd.py and
+     test_fisheye_stereo_end_to_end), each held to its JAX test's gates;
+     frame 0's stereo depth against the rendered depth; the launches of
+     every kernel checked against the frames (two extractions a stereo
+     frame, 2 or 12 one-image gathers) and the keyframe events;
+     prepare_frame_stereo and prepare_frame_stereo_fisheye on the card
+     against the CPU; one steady stereo frame profiled
+     (chiprun_out/profile_frame_stereo.txt) and prepare_frame_stereo alone
+     (chiprun_out/profile_prepare_stereo.txt).
 
-Output: per-phase lines, then on lines of their own the kernels' JSON
-record (with the System phase's record under "system"), the card's name
+Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
+on lines of their own the kernels' JSON
+record (with the System phase's record under "system", phase 7's under
+"stereo"), the card's name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card or the port's package is not beside this script.
@@ -99,8 +120,14 @@ GATES = dict(tracked=0.95, median_m=0.01, max_m=0.05, cpu_match=0.99,
              cpu_pose=1e-3)
 
 
+# a copy of every logged line, for what does not fit the end of the output
+LOG_COPY = []
+
+
 def log(*a):
     print(*a, flush=True)
+    for f in LOG_COPY:
+        print(*a, file=f, flush=True)
 
 
 def cuda_ms(fn, reps=30, warm=3):
@@ -247,11 +274,18 @@ def kernel_phase(dev, rates):
     sel_plain = lambda m, c: topk.cell_topk_levels_plain(m, c, margin, k)
     err = same("cell_topk (the frame's 8 levels)", sel(maps, contents),
                sel_plain(maps, contents))
-    for m, c in ((maps[-1:], contents[-1:]), (maps * 2, contents * 2)):
+    for m, c in ((maps[-1:], contents[-1:]), (maps * 2, contents * 2),
+                 (maps * 2 + maps[:1], contents * 2 + contents[:1])):
         err = max(err, same(f"cell_topk ({len(m)} levels)", sel(m, c),
                             sel_plain(m, c)))
-    must_raise("cell_topk (17 levels)",
-               lambda: sel(maps * 2 + maps[:1], contents * 2 + contents[:1]))
+    # the other cells of the kernel's shape rule: 16 in registers, 48, 64
+    # and 80 through the scan kernel; 24, whose area is not 128 m, takes the
+    # plain version on the card as well
+    for cell in (16, 48, 64, 80, 24):
+        err = max(err, same(
+            f"cell_topk (cell {cell})",
+            topk.cell_topk_levels(maps, contents, margin, k, cell),
+            topk.cell_topk_levels_plain(maps, contents, margin, k, cell)))
     # ... and the matrix entry, the one-level case on a [C, 1024] matrix
     for lh, lw in shapes[::3]:
         C = ((lh + 31) // 32) * ((lw + 31) // 32)
@@ -263,6 +297,16 @@ def kernel_phase(dev, rates):
         x[3, :] = -np.inf
         x[3, [9, 600]] = 8.0                            # < k finite values
         err = max(err, same(f"cell_topk ([{C}, 1024] matrix)",
+                            topk.cell_topk(f(x), k),
+                            topk.cell_topk_plain(f(x), k)))
+    # rows of 128 m that are no square of 16 or 32: 1 x A cells and the
+    # [48 C, 48] view, both through the scan kernel
+    for A in (384, 2304):
+        x = np.where(rng.uniform(size=(301, A)) < 0.08,
+                     rng.integers(7, 100, (301, A)), 0).astype(np.float32)
+        x[1, [5, A - 1]] = 42.0
+        x[2, :] = -np.inf
+        err = max(err, same(f"cell_topk ([301, {A}] matrix)",
                             topk.cell_topk(f(x), k),
                             topk.cell_topk_plain(f(x), k)))
     # the least work: read the pixels inside the masks (the rest are 0 by
@@ -353,6 +397,9 @@ def kernel_phase(dev, rates):
                             ms=device_ms(lambda: [patches.gather_patches(
                                 atlas, r, ph) for r, ph in calls],
                                 what="gather_patches, atlas"))
+    rec[-1]["stereo"] = stereo_gather_check(dev, rng, f, same)
+    rec[-1]["max_abs_err"] = max(rec[-1]["max_abs_err"], max(
+        q["max_abs_err"] for q in rec[-1]["stereo"].values()))
 
     # 3. hamming_best2_windowed: stage 1 (Q=1024) and stage 2 (Q=4096)
     sf = 1.2 ** np.arange(8)
@@ -473,6 +520,61 @@ def kernel_phase(dev, rates):
     return rec
 
 
+def stereo_gather_check(dev, rng, f, same):
+    """gather_patches' one-image case at the stereo matcher's shapes: 1024
+    windows of 12x12 and of 12x22 from a 752x480 image, at corners clipped
+    as ops/stereo.bilinear_windows clips them (the JAX package's
+    stereo.py:83-86), those at 0 and at H - (P + 1), W - (w + 1) included.
+    Against the plain version, the unfold index (the library call) and
+    the bound, per call; a rectified frame makes one call of each shape, a
+    fisheye frame 12 of 12x12."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import patches, stereo
+    H, W = CAM_KW["height"], CAM_KW["width"]
+    img = f(np.round(rng.uniform(0, 255, (H, W))).astype(np.float32))
+    n = 1024
+    P = 2 * stereo.SAD_W + 1
+    out = {}
+    for half_w in (stereo.SAD_W, stereo.SAD_W + stereo.SLIDE_L):
+        w = 2 * half_w + 1
+        uc = rng.uniform(-3, W + 3, n).astype(np.float32)
+        vc = rng.uniform(-3, H + 3, n).astype(np.float32)
+        y0 = np.clip(np.floor(vc).astype(np.int32) - stereo.SAD_W, 0,
+                     H - (P + 1))
+        x0 = np.clip(np.floor(uc).astype(np.int32) - half_w, 0, W - (w + 1))
+        y0[:4] = [0, H - (P + 1), 0, H - (P + 1)]
+        x0[:4] = [0, W - (w + 1), W - (w + 1), 0]
+        rc = f(np.stack([y0, x0], 1).astype(np.int32))
+        ph, pw = P + 1, w + 1
+        name = f"{ph}x{pw}"
+        gat = lambda: patches.gather_patches(img, rc, ph, pw)
+        plain = lambda: patches.gather_patches_plain(img, rc, ph, pw)
+        view = img.unfold(0, ph, 1).unfold(1, pw, 1)
+        r0, c0 = rc[:, 0].long(), rc[:, 1].long()
+        library = lambda: view[r0, c0]
+        err = same(f"gather_patches (one image, {name})", [gat()], [plain()])
+        same(f"gather_patches' library call ({name})", [library()],
+             [plain()])
+        n_cov = covered_pixels([(H, W)], [(r0, c0)], ph, pw)
+        b, by = bound_ms(n * 8 + n_cov * 4 + n * ph * pw * 4, 0)
+        out[name] = dict(
+            max_abs_err=err, bound_ms=b, bound_by=by,
+            ms=device_ms(gat, what=f"gather_patches, {name}"),
+            event_ms=cuda_ms(gat),
+            plain_ms=device_ms(plain, what=f"gather_patches, {name}, plain"),
+            library_ms=device_ms(library,
+                                 what=f"gather_patches, {name}, library"),
+            unit=f"one call: {n} windows of {name} covering {n_cov} pixels "
+                 f"of a {W}x{H} image")
+        q = out[name]
+        log(f"  gather_patches, stereo {name}: equal to plain; device "
+            f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, unfold index "
+            f"{q['library_ms']:.4f}, bound {q['bound_ms']:.5f} by {by}, "
+            f"{q['bound_ms'] / q['ms']:.0%} of it); CUDA events "
+            f"{q['event_ms']:.4f} ms per {q['unit']}")
+    return out
+
+
 def must_raise(name, fn):
     """fn must refuse its arguments with a ValueError, before any launch."""
     try:
@@ -541,15 +643,16 @@ def patch_starts(shapes, budgets, rc, pw):
     return out
 
 
-def covered_pixels(shapes, starts, p):
-    """Pixels of the images that at least one p x p window covers, the
-    windows at the (r0, c0) starts of patch_starts: the least the gather
-    must read."""
+def covered_pixels(shapes, starts, p, pw=0):
+    """Pixels of the images that at least one p x pw window (pw defaults to
+    p) covers, the windows at the (r0, c0) starts of patch_starts: the
+    least the gather must read."""
     n = 0
+    pw = pw or p
     for (h, w), (r0, c0) in zip(shapes, starts):
         cov = np.zeros((h, w), bool)
         for r, c in zip(r0.tolist(), c0.tolist()):
-            cov[r:r + p, c:c + p] = True
+            cov[r:r + p, c:c + pw] = True
         n += int(cov.sum())
     return n
 
@@ -747,16 +850,18 @@ def map_arrays(m):
     return {**m.to_numpy(), "tombstones": copy.deepcopy(m.tombstones)}
 
 
-def _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev, snap):
-    """A tracker, on a copy of the map, in the state another tracker had at
-    a snapshot; the map's device copies are made here, as the tracker that
-    was snapshotted had them already."""
+def _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev, snap,
+             tracker_kw=None):
+    """A tracker (of tracker_kw's sensor, if given), on a copy of the map,
+    in the state another tracker had at a snapshot; the map's device copies
+    are made here, as the tracker that was snapshotted had them already."""
     from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
         MapStore)
     m = MapStore.from_numpy(snap["map"], map_cfg, device=dev)
     m.device_points()
     m.device_kf_obs()
-    tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev)
+    tk = tracking.Tracker(cam, m, track_cfg, orb_cfg, device=dev,
+                          **(tracker_kw or {}))
     for key, val in snap.items():
         if key != "map":
             setattr(tk, key, list(val) if isinstance(val, list) else val)
@@ -1177,7 +1282,10 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
         n0 = {st: len(timing.samples(st)) for st in SYS_STAGES}
         sync()
         t0 = time.perf_counter()
-        process(k)
+        if snap is None:
+            process(k)
+        else:
+            snap["fuse_matches"] = fuse_matches(lm, lambda: process(k))
         sync()
         host = (time.perf_counter() - t0) * 1e3
         events.append(dict(lm.last_event, frame=frame[0], host_ms=host,
@@ -1297,6 +1405,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
                              f"on to replay")
     replay = {**replay.pop("first"), **replay}
     k, ev_card = replay["kf"], events[replay["index"]]
+    fuse_card = replay["fuse_matches"]
 
     def mapper(device):
         m = MapStore.from_numpy(replay["map"], map_cfg, device=device)
@@ -1307,7 +1416,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     # the event once more on the CPU, from the snapshot taken before it
     t0 = time.perf_counter()
     lm_cpu = mapper(torch.device("cpu"))
-    lm_cpu.process_keyframe(k)
+    fuse_cpu = fuse_matches(lm_cpu, lambda: lm_cpu.process_keyframe(k))
     ev_cpu = lm_cpu.last_event
     rec["replay"] = dict(frame=replay["frame"], kf=k, card=ev_card,
                          cpu=dict(ev_cpu), cpu_s=time.perf_counter() - t0)
@@ -1318,6 +1427,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
         f"culled keyframes {ev_cpu['culled_kfs']} (card "
         f"{ev_card['culled_kfs']}), fuse links {ev_cpu['fused']} (card "
         f"{ev_card['fused']})")
+    rec["replay"]["fuse_diff"] = fuse_diff(fuse_card, fuse_cpu)
     if (abs(ev_cpu["new_points"] - ev_card["new_points"])
             > gates["replay_new"] * ev_card["new_points"]
             or ev_cpu["culled_kfs"] != ev_card["culled_kfs"]
@@ -1338,6 +1448,471 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
         log(f"device busy share of a steady frame: "
             f"{rec['profile']['busy_share']:.3f}")
     return rec
+
+
+# ---------------------------------------------------------------- phase 7
+# stereo, fisheye stereo and RGB-D at full width, the cases of
+# tests/test_pipeline_stereo_rgbd.py and test_pipeline_fisheye.py's
+# test_fisheye_stereo_end_to_end: a rectified pinhole pair (EuRoC's camera,
+# baseline 0.11 m) and RGB-D on world seed 9's 40-frame orbit, a KB8 rig
+# (TUM-VI-like, T_c1c2 = +0.11 m in x) on world seed 17's first 30 frames;
+# ts = 0.05 i, ray-cast frames, loop closing off.
+STEREO_N, FISHEYE_N, BASELINE = 40, 30, 0.11
+KB8_KW = dict(fx=380.0, fy=380.0, cx=376.0, cy=240.0, width=752, height=480,
+              k1=0.0034, k2=0.0008, k3=-0.0007, k4=0.0001)
+STEREO_GATES = dict(
+    depth=dict(min_matches=200, median_rel=0.03, within_01=0.85),
+    stereo=dict(tracked=0.8, ate_poses=0.7, ate_m=0.05, scale=0.03),
+    rgbd=dict(tracked=0.8, ate_poses=0.7, ate_m=0.04),
+    fisheye=dict(tracked=0.7, ate_poses=0.6, ate_m=0.06),
+    cpu_valid=0.99, cpu_depth_rel=1e-3, cpu_inv_depth=1e-6,
+    # whole-program depths outside cpu_depth_rel, each one with inputs that
+    # differ between the devices' front ends: the H100 read 1 (rectified)
+    # and 3 (KB8); the cap is those counts and a margin of one or two
+    cpu_outside=dict(stereo=2, fisheye=5))
+# one-image gathers a frame: the rectified matcher's 12x12 and 12x22, the
+# fisheye refinement's 12 of 12x12 (ops/stereo.py)
+SAD_GATHERS = dict(stereo=2, rgbd=0, fisheye=12)
+
+
+def stereo_path(dev, cam_kw=CAM_KW, kb8_kw=KB8_KW, n_frames=STEREO_N,
+                n_fisheye=FISHEYE_N, map_cfg=None, orb_cfg=None,
+                gates=STEREO_GATES, profile_from=30):
+    """Phase 7: System(cam, STEREO / RGBD, ...) and the two-camera rig on
+    the card, each gated as its JAX test is, with every kernel's launches
+    checked against its frames' paths and keyframe events; frame 0's
+    stereo depth against the rendered depth; prepare_frame_stereo and
+    prepare_frame_stereo_fisheye on the card against the CPU; on the card
+    one steady stereo frame profiled and prepare_frame_stereo alone."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        kernels, system, tracking)
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+
+    cam = cameras.pinhole(**cam_kw)
+    kb8 = cameras.fisheye_kb8(**kb8_kw)
+    map_cfg = map_cfg or MapConfig()
+    orb_cfg = orb_cfg or OrbConfig()
+    bf = BASELINE * cam.fx
+    out = {}
+    t0 = time.perf_counter()
+    planes = sr.default_world(np.random.default_rng(9))
+    R, t = sr.orbit_trajectory(n_frames)
+    pairs, rgbd = [], []
+    for i in range(n_frames):
+        img, X, hit = sr.render_frame_raycast(cam, planes, R[i], t[i])
+        rgbd.append((img, sr.camera_depth(R[i], t[i], X, hit)))
+        pairs.append(sr.render_stereo_pair(cam, planes, R[i], t[i],
+                                           BASELINE))
+    planes_f = sr.default_world(np.random.default_rng(17))
+    Rf, tf = sr.orbit_trajectory(40)
+    T_c1c2 = np.eye(4, dtype=np.float32)
+    T_c1c2[0, 3] = BASELINE
+    fish = [(sr.render_frame_raycast(kb8, planes_f, Rf[i], tf[i])[0],
+             sr.render_frame_raycast(kb8, planes_f, Rf[i], (
+                 tf[i] - np.array([BASELINE, 0, 0])).astype(np.float32))[0])
+            for i in range(n_fisheye)]
+    log(f"  rendered {n_frames} stereo pairs with depth maps and "
+        f"{n_fisheye} KB8 pairs in {time.perf_counter() - t0:.1f} s")
+
+    # frame 0's depth (test_stereo_match_kernel_depth's gates)
+    up = lambda a: torch.from_numpy(a).to(dev)
+    prep, depth, _ = kernels.prepare_frame_stereo(
+        up(pairs[0][0]), up(pairs[0][1]), cam, bf, orb_cfg)
+    d, xy, v = (x.cpu().numpy() for x in (depth, prep.feat.xy,
+                                         prep.feat.valid))
+    ok = (d > 0) & v
+    gt = rgbd[0][1][np.clip(xy[ok][:, 1].astype(int), 0, cam.height - 1),
+                    np.clip(xy[ok][:, 0].astype(int), 0, cam.width - 1)]
+    rel = np.abs(d[ok][gt > 0] - gt[gt > 0]) / gt[gt > 0]
+    g = gates["depth"]
+    out["depth"] = dict(matches=int(ok.sum()), median_rel=float(
+        np.median(rel)), within_01=float((rel < 0.1).mean()))
+    log(f"stereo depth of frame 0: {ok.sum()} matches, median relative "
+        f"error {out['depth']['median_rel']:.4f}, "
+        f"{out['depth']['within_01']:.3f} within 0.1")
+    if not (ok.sum() > g["min_matches"] and np.median(rel) < g["median_rel"]
+            and (rel < 0.1).mean() > g["within_01"]):
+        raise AssertionError(f"stereo depth missed its gates: "
+                             f"{out['depth']}")
+
+    # the card against the CPU on one frame of each stereo program: the
+    # whole program, and its matching alone on the CPU's features (the
+    # front ends of the two devices may differ in a keypoint now and then:
+    # phases 4 and 5 hold them to 99 %)
+    out["card_vs_cpu"] = stereo_card_vs_cpu(
+        dev, cam, kb8, bf, orb_cfg, pairs[0], fish[0], T_c1c2, gates)
+    C = sr.camera_centers(R, t)
+    runs = dict(
+        stereo=(lambda: system.System(cam, system.STEREO, map_cfg=map_cfg,
+                                      orb_cfg=orb_cfg, baseline=BASELINE,
+                                      enable_loop_closing=False, device=dev),
+                lambda s, i: s.track_stereo(*pairs[i], 0.05 * i), n_frames,
+                C),
+        rgbd=(lambda: system.System(cam, system.RGBD, map_cfg=map_cfg,
+                                    orb_cfg=orb_cfg, baseline=BASELINE,
+                                    enable_loop_closing=False, device=dev),
+              lambda s, i: s.track_rgbd(*rgbd[i], 0.05 * i), n_frames, C),
+        fisheye=(lambda: system.System(kb8, system.STEREO, map_cfg=map_cfg,
+                                       orb_cfg=orb_cfg, camera2=kb8,
+                                       T_c1c2=T_c1c2,
+                                       enable_loop_closing=False,
+                                       device=dev),
+                 lambda s, i: s.track_stereo(*fish[i], 0.05 * i), n_fisheye,
+                 sr.camera_centers(Rf, tf)[:n_fisheye]))
+    for name, (make, feed, n, centres) in runs.items():
+        snaps = {}
+        out[name] = sensor_run(name, make, feed, n, centres, gates[name],
+                               dev, snaps,
+                               range(profile_from, profile_from + 4)
+                               if name == "stereo" else ())
+        track_cfg = out[name].pop("track_cfg")
+        if name == "stereo" and dev.type == "cuda":
+            steady = [i for i in snaps if out[name]["how"][i] == "steady"]
+            if not steady:
+                raise AssertionError("no steady frame to profile")
+            i = steady[0]
+            tk_kw = dict(sensor=tracking.SENSOR_STEREO, bf=bf)
+            make_tk = lambda: _restore(tracking, cam, map_cfg, track_cfg,
+                                       orb_cfg, dev, snaps[i], tk_kw)
+            track = lambda tk, j: tk.track_stereo(*pairs[j], 0.05 * j)
+            tk = make_tk()
+            sites = sync_sites(lambda: track(tk, i))
+            prof = profile_frames(make_tk, None, [i],
+                                  table="profile_frame_stereo.txt",
+                                  alone=False, track=track)
+            prof["syncs"] = sum(sites.values())
+            prof["sync_sites"] = dict(sites)
+            prof["busy_share"] = prof["device_ms"] / out[name][
+                "frame_ms_median"]
+            pl, pr = up(pairs[i][0]), up(pairs[i][1])
+            prof["prepare_frame_stereo"] = profile_call(
+                lambda: kernels.prepare_frame_stereo(pl, pr, cam, bf,
+                                                     orb_cfg),
+                table="profile_prepare_stereo.txt")
+            log(f"stereo frame {i} profiled: device {prof['device_ms']:.2f} "
+                f"ms in {prof['kernels']:.0f} kernels, {prof['syncs']} host "
+                f"syncs ({dict(sites.most_common(6))}), busy share "
+                f"{prof['busy_share']:.3f}; prepare_frame_stereo alone: "
+                f"device {prof['prepare_frame_stereo']['device_ms']:.2f} ms "
+                f"in {prof['prepare_frame_stereo']['kernels']} kernels, host "
+                f"clock {prof['prepare_frame_stereo']['host_ms']:.2f} ms")
+            out[name]["profile"] = prof
+    return out
+
+
+def stereo_card_vs_cpu(dev, cam, kb8, bf, orb_cfg, pair, fish, T_c1c2,
+                       gates):
+    """prepare_frame_stereo and prepare_frame_stereo_fisheye on one frame,
+    on the card and on the CPU, and their matching after the extraction
+    (stereo_match; fisheye_stereo_depth) on the card from the CPU's
+    features. Gates: the depth-valid sets agree on
+    >= 99 % of the features; on the CPU's own features the card's matching
+    (stereo_match; fisheye_stereo_depth) gives every feature valid on both
+    a depth within 1e-3 relative (or, past ~1 km, 1e-6 per metre in
+    inverse depth); and every feature outside that tolerance in the whole
+    programs is one whose inputs differ between the devices (within it on
+    the shared features), no more of them than gates["cpu_outside"]. Where
+    the devices' front ends part is logged by ``frontend_diff``."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import (
+        extractor, pyramid, stereo)
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+    cpu = torch.device("cpu")
+    T_rl = np.linalg.inv(T_c1c2.astype(np.float64)).astype(np.float32)
+
+    def match(name, d_, p, fr, imgs):
+        """The program's depth from given features, on device d_."""
+        mv = lambda x: x.to(d_)
+        L, Rr = (torch.from_numpy(a).to(d_) for a in imgs)
+        if name == "stereo":
+            return stereo.stereo_match(
+                mv(p.xy_ud), mv(p.feat.level), mv(p.feat.desc),
+                mv(p.feat.valid), mv(fr.xy), mv(fr.level), mv(fr.desc),
+                mv(fr.valid), L, Rr, bf, min_z=max(bf / cam.fx * 2.0, 0.3),
+                n_levels=orb_cfg.n_levels, scale=orb_cfg.scale).depth
+        p = kernels.PreparedFrame(extractor.FrameFeatures(
+            *(mv(a) for a in p.feat)), mv(p.xy_ud), mv(p.xyn))
+        fr = extractor.FrameFeatures(*(mv(a) for a in fr))
+        return kernels.fisheye_stereo_depth(
+            p, fr, L, Rr, kb8, kb8, torch.from_numpy(T_rl[:3, :3]).to(d_),
+            torch.from_numpy(T_rl[:3, 3]).to(d_))[0]
+
+    def close(a, b):
+        rel = np.abs(a - b) / b
+        return ((rel < gates["cpu_depth_rel"])
+                | (np.abs(1 / a - 1 / b) < gates["cpu_inv_depth"])), rel
+
+    def program(name, d_, imgs):
+        L, Rr = (torch.from_numpy(a).to(d_) for a in imgs)
+        if name == "stereo":
+            return kernels.prepare_frame_stereo(L, Rr, cam, bf, orb_cfg)[1]
+        return kernels.prepare_frame_stereo_fisheye(
+            L, Rr, kb8, kb8, torch.from_numpy(T_rl[:3, :3]).to(d_),
+            torch.from_numpy(T_rl[:3, 3]).to(d_), orb_cfg)[1]
+
+    out = {}
+    for name, imgs in (("stereo", pair), ("fisheye", fish)):
+        zs, feats = {}, {}
+        for d_ in (dev, cpu):
+            zs[d_.type] = program(name, d_, imgs).cpu().numpy()
+            L, Rr = (torch.from_numpy(a).to(d_) for a in imgs)
+            feats[d_.type] = (kernels.prepare_frame(
+                L, cam if name == "stereo" else kb8, orb_cfg),
+                extractor.extract(Rr, orb_cfg))
+        # the matching of the card on the CPU's features
+        zx = match(name, dev, *feats["cpu"], imgs).cpu().numpy()
+        zg, zc = zs[dev.type], zs["cpu"]
+        vg, vc, vx = zg > 0, zc > 0, zx > 0
+        both = vg & vc
+        ok, rel = close(zg[both], zc[both])
+        okx, relx = close(zx[vx & vc], zc[vx & vc])
+        shared_ok = np.zeros_like(vc)
+        shared_ok[np.where(vx & vc)[0][okx]] = True
+        outside = np.where(both)[0][~ok]
+        # a feature outside the tolerance whose depth the card's matching
+        # does give within it from the CPU's features differs by its inputs
+        unexplained = [int(i) for i in outside if not shared_ok[i]]
+        differ = {side: frontend_diff(g, c) for side, g, c in (
+            ("left", feats[dev.type][0].feat, feats["cpu"][0].feat),
+            ("right", feats[dev.type][1], feats["cpu"][1]))}
+        # the pyramid is two matrix products a level, summed in another
+        # order by each device's library
+        pyr = [pyramid.build_pyramid(torch.from_numpy(imgs[0]).to(d_),
+                                     orb_cfg.n_levels, orb_cfg.scale)
+               for d_ in (dev, cpu)]
+        differ["left"]["pyramid_max_diff"] = [
+            float((a.cpu() - b).abs().max()) for a, b in zip(*pyr)]
+        q = out[name] = dict(
+            valid_agree=float((vg == vc).mean()), n_valid=int(vg.sum()),
+            max_rel=float(rel.max()), n_outside=len(outside),
+            shared_valid_agree=float((vx == vc).mean()),
+            shared_max_rel=float(relx.max()),
+            shared_n_outside=int((~okx).sum()),
+            descriptors_differing=differ, unexplained=unexplained)
+        log(f"  {name} frame 0, card against CPU: depth-valid sets agree on "
+            f"{q['valid_agree']:.4f} of the features ({q['n_valid']} valid "
+            f"on the card), largest relative depth difference "
+            f"{q['max_rel']:.2e}, {len(outside)} outside 1e-3 (or 1e-6 per "
+            f"metre in inverse depth); where the devices' front ends part "
+            f"{differ}; on the CPU's features the "
+            f"card's matching agrees on {q['shared_valid_agree']:.4f}, "
+            f"largest relative difference {q['shared_max_rel']:.2e}, "
+            f"{q['shared_n_outside']} outside")
+        if (q["valid_agree"] < gates["cpu_valid"]
+                or q["shared_valid_agree"] < gates["cpu_valid"]
+                or q["shared_n_outside"] or unexplained
+                or len(outside) > gates["cpu_outside"][name]):
+            raise AssertionError(f"{name}: card and CPU depths disagree: "
+                                 f"{q}")
+    return out
+
+
+def frontend_diff(card, cpu):
+    """Where two devices' features of one image part, by the stage that
+    makes the difference: keypoints (xy, level) kept on one side only (the
+    pyramid, the FAST score, its NMS or the selection), and their levels;
+    among the keypoints both keep,
+    angles in another of the descriptor's rotation bins (the intensity
+    moments), and descriptors that differ within the same bin (the blurred
+    intensities flipping pair tests), with the bits that differ in each."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import brief
+    fa, fb = ({k: t.cpu() for k, t in f._asdict().items()}
+              for f in (card, cpu))
+
+    def keys(f):
+        return {(float(x), float(y), int(lv)): i for i, ((x, y), lv, ok)
+                in enumerate(zip(f["xy"].tolist(), f["level"].tolist(),
+                                 f["valid"].tolist())) if ok}
+    ka, kb = keys(fa), keys(fb)
+    both = sorted(set(ka) & set(kb))
+    ia = torch.tensor([ka[k] for k in both], dtype=torch.long)
+    ib = torch.tensor([kb[k] for k in both], dtype=torch.long)
+    other_bin = (brief.angle_bin(fa["angle"][ia])
+                 != brief.angle_bin(fb["angle"][ib])).numpy()
+    xor = (fa["desc"][ia] ^ fb["desc"][ib]).numpy()
+    bits = np.unpackbits(xor.view(np.uint8), axis=1).sum(1)
+    same_bin = (bits > 0) & ~other_bin
+    d = fa["angle"][ia] - fb["angle"][ib]
+    dang = torch.atan2(torch.sin(d), torch.cos(d)).abs()
+    return dict(keypoints=len(set(ka) ^ set(kb)),
+                their_levels=sorted(k[2] for k in set(ka) ^ set(kb)),
+                shared=len(both),
+                other_bin=int(other_bin.sum()), same_bin=int(same_bin.sum()),
+                same_bin_bits=sorted(int(x) for x in bits[same_bin]),
+                max_angle_diff=float(dang.max()) if len(both) else 0.0)
+
+
+def sensor_run(name, make, feed, n, centres, g, dev, snaps, snap_at):
+    """One System over n frames: launches counted over the run alone and
+    checked, each frame's path and host clock, keyframe events, the metric
+    ATE (and for stereo the scale) against its gates. Tracker snapshots
+    are taken before the frames of snap_at."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.utils import evaluate_ate
+    slam = make()
+    tk, lm = slam.tracker, slam.local_mapper
+    process, n_fuse, n_events = lm.process_keyframe, [0], [0]
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event["fuse_searches"]
+        n_events[0] += 1
+
+    lm.process_keyframe = counted
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    ts = 0.05 * np.arange(n)
+    poses, times, how = [], [], {}
+    native.reset_launches()                 # this path's run starts here
+    for i in range(n):
+        if i in snap_at:
+            snaps[i] = snapshot(tk)
+        steps0, ref0, ev0 = tk.n_steps, tk.n_ref_kf_searches, n_events[0]
+        sync()
+        t0 = time.perf_counter()
+        T = feed(slam, i)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        poses.append(T)
+        how[i] = ("none" if T is None else "init" if tk.n_steps == steps0
+                  and tk.n_ref_kf_searches == ref0 else "steady"
+                  if tk.n_ref_kf_searches == ref0 else "ref_kf")
+        if n_events[0] > ev0:
+            how[i] += "+kf"
+    launches = dict(native.launches)        # ... and ends here
+    lm.process_keyframe = process
+    per_frame = 1 if name == "rgbd" else 2
+    expect = dict(dense_frontend=per_frame * n, cell_topk=per_frame * n,
+                  gather_patches=(per_frame + SAD_GATHERS[name]) * n,
+                  hamming_best2=2 * tk.n_ref_kf_searches,
+                  hamming_best2_windowed=2 * tk.n_steps
+                  + tk.n_local_map_searches + n_fuse[0])
+    log(f"{name}: frames by path {how}")
+    log(f"{name}: launches {launches} (expected {expect}: {per_frame} "
+        f"extraction(s) and {SAD_GATHERS[name]} one-image gathers a frame, "
+        f"{tk.n_steps} fused steps, {tk.n_ref_kf_searches} reference-"
+        f"keyframe and {tk.n_local_map_searches} local-map stages, "
+        f"{n_events[0]} keyframe events with {n_fuse[0]} fuse searches)")
+    if dev.type == "cuda":
+        for k, want in expect.items():
+            if launches[k] != want or (want == 0 and k != "hamming_best2"):
+                raise AssertionError(f"{name}: {k}: {launches[k]} launches, "
+                                     f"expected {want}")
+    rows = slam.trajectory_tum()
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    rmse, n_ate, _ = evaluate_ate.ate_rmse(ts, centres, est_ts, est,
+                                           with_scale=False)
+    scale = evaluate_ate.ate_rmse(ts, centres, est_ts, est,
+                                  with_scale=True)[2]
+    tracked = sum(p is not None for p in poses)
+    steady = [times[i] for i in range(1, n) if how[i] == "steady"]
+    kf = [times[i] for i in range(1, n) if how[i].endswith("+kf")]
+    rec = dict(tracked=tracked, n_frames=n, keyframes=slam.n_keyframes,
+               points=slam.n_map_points, ate_m=rmse, ate_poses=n_ate,
+               scale=scale, consistency=slam.check_map_consistency(),
+               n_events=n_events[0], launches=launches, how=how,
+               frame_ms_median=float(np.median(steady)),
+               frame_ms_p90=float(np.percentile(steady, 90)),
+               kf_frame_ms_median=float(np.median(kf)) if kf else None,
+               kf_frame_ms_p90=float(np.percentile(kf, 90)) if kf else None,
+               n_steady=len(steady), n_kf_frames=len(kf),
+               track_cfg=tk.cfg)
+    log(f"{name}: {tracked}/{n} frames tracked, {slam.n_keyframes} "
+        f"keyframes, {slam.n_map_points} points, consistency "
+        f"{rec['consistency']}; metric ATE {rmse:.5f} m over {n_ate} poses, "
+        f"scale {scale:.4f}; host clock of {len(steady)} steady frames "
+        f"median {rec['frame_ms_median']:.2f} ms, p90 "
+        f"{rec['frame_ms_p90']:.2f} ms; of {len(kf)} keyframe frames median "
+        f"{rec['kf_frame_ms_median']} ms, p90 {rec['kf_frame_ms_p90']} ms")
+    fails = [k for k, bad in (
+        ("frames tracked", tracked <= g["tracked"] * n),
+        ("ATE", not (n_ate > g["ate_poses"] * n and rmse < g["ate_m"])),
+        ("scale", "scale" in g and not abs(scale - 1.0) < g["scale"]),
+        ("map consistency", rec["consistency"] != [])) if bad]
+    if fails:
+        raise AssertionError(f"{name} missed its gates: {fails}")
+    return rec
+
+
+def fuse_matches(lm, run):
+    """run() (one process_keyframe of LocalMapper lm) with its fuse searches
+    watched from outside: the mapper's projection searches and the map's
+    fuse_observations are wrapped for the call. Both run only in the fuse
+    passes, search j feeding the j-th fuse_observations (search 0 the
+    forward pass, j > 0 the reverse pass into the j-th neighbour). Returns
+    for each search (search, keyframe, points, features, projected uv,
+    predicted levels, Hamming distances) of its matches, as numpy arrays."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import local_mapping
+    matching, m = local_mapping.matching, lm.map
+    search, fuse = matching.search_by_projection, m.fuse_observations
+    searches, fused = [], []
+
+    def capture_search(uv, visible, desc, level, *a, **kw):
+        res = search(uv, visible, desc, level, *a, **kw)
+        searches.append((uv, level, res))
+        return res
+
+    def capture_fuse(kf, pids, feats):
+        fused.append((int(kf), np.asarray(pids), np.asarray(feats)))
+        return fuse(kf, pids, feats)
+
+    matching.search_by_projection = capture_search
+    m.fuse_observations = capture_fuse
+    try:
+        run()
+    finally:
+        matching.search_by_projection = search
+        del m.fuse_observations
+    if len(searches) != len(fused) or not searches:
+        raise AssertionError(f"{len(searches)} fuse searches and {len(fused)} "
+                             f"fuse_observations calls in one event")
+    out = []
+    for s, ((uv, level, res), (kf, pids, feats)) in enumerate(
+            zip(searches, fused)):
+        sel = np.where(res.valid.cpu().numpy())[0]
+        if len(sel) != len(pids):
+            raise AssertionError(f"fuse search {s}: {len(sel)} matches, "
+                                 f"{len(pids)} fused")
+        out.append((s, kf, pids, feats, uv.cpu().numpy()[sel],
+                    level.cpu().numpy()[sel], res.dist.cpu().numpy()[sel]))
+    return out
+
+
+def fuse_diff(card, cpu):
+    """The fuse matches of one keyframe event that differ between the card
+    and the CPU: each (search, keyframe, point) matched on one side only or
+    to another feature, with both sides' feature, projection and Hamming
+    distance. Search 0 is the forward pass, j > 0 the reverse pass into
+    the j-th neighbour (``fuse_matches``)."""
+    def by(searches):
+        return {(s, kf, int(p)): (int(f), float(u), float(v), int(lv), int(d))
+                for s, kf, pids, feats, uv, lvs, ds in searches
+                for p, f, (u, v), lv, d in zip(pids, feats, uv, lvs, ds)}
+    a, b = by(card), by(cpu)
+    diff = [dict(search=key[0], kf=key[1], point=key[2],
+                 card=a.get(key), cpu=b.get(key))
+            for key in sorted(set(a) | set(b)) if a.get(key) is None
+            or b.get(key) is None or a[key][0] != b[key][0]
+            or a[key][4] != b[key][4]]
+    both = [key for key in set(a) & set(b) if a[key][0] == b[key][0]]
+    duv = max((max(abs(a[key][1] - b[key][1]), abs(a[key][2] - b[key][2]))
+               for key in both), default=0.0)
+    log(f"  fuse matches of the event: card {len(a)}, CPU {len(b)}, "
+        f"{len(diff)} differ; largest projection difference among the "
+        f"{len(both)} equal matches {duv:.2e} px")
+    for d in diff[:20]:
+        log(f"    search {d['search']} into keyframe {d['kf']}, point "
+            f"{d['point']}: card (feature, u, v, level, distance) "
+            f"{d['card']}, CPU {d['cpu']}")
+    return dict(n_card=len(a), n_cpu=len(b), n_diff=len(diff),
+                diff=diff[:20], max_uv_diff=duv)
 
 
 def profile_event(mapper, dev, k):
@@ -1389,8 +1964,8 @@ def profile_event(mapper, dev, k):
 
 
 def fuse_search_check(mapper, dev, k, hamming):
-    """The fuse passes' projection searches of one keyframe event, at their
-    own shapes (the forward pass's padded candidates, the reverse passes'
+    """Every projection search of one keyframe event's fuse passes, at its
+    own shape (the forward pass's padded candidates, the reverse passes'
     per-feature points against a neighbour's features), against the plain
     version on the same inputs."""
     import torch
@@ -1409,7 +1984,7 @@ def fuse_search_check(mapper, dev, k, hamming):
     if len(calls) < 2:
         raise AssertionError(f"the event made {len(calls)} fuse searches")
     shapes = []
-    for a in (calls[0], calls[-1]):
+    for a in calls:
         got = kernel(*a)
         ref = hamming.hamming_best2_windowed_plain(*a)
         torch.cuda.synchronize()
@@ -1418,9 +1993,10 @@ def fuse_search_check(mapper, dev, k, hamming):
                                  "version")
         shapes.append((int(a[0].shape[0]), int(a[7].shape[0]),
                        int(a[6].sum()), int((got[0] < hamming.BIG).sum())))
-    log(f"fuse searches of the event against the plain version: equal at "
-        f"(queries, targets, valid queries, rows with a candidate) = "
-        f"{shapes} (forward, last reverse); {len(calls)} searches in all")
+    log(f"fuse searches of the event against the plain version: all "
+        f"{len(calls)} equal, at (queries, targets, valid queries, rows with "
+        f"a candidate) = {shapes[0]} (forward) and {shapes[-1]} (last "
+        f"reverse)")
     return dict(n_searches=len(calls), shapes=shapes, max_abs_err=0)
 
 
@@ -1533,7 +2109,7 @@ KERNEL_SYMBOLS = {"cell_topk": "cell_topk_levels_kernel",
 
 
 def profile_frames(make_tk, imgs, frames, table="profile_frames.txt",
-                   alone=True):
+                   alone=True, track=None):
     """torch.profiler over frames tracked by make_tk()'s tracker (a fresh
     one for each session, should a session lose its records): device time
     (sum of kernel
@@ -1543,7 +2119,8 @@ def profile_frames(make_tk, imgs, frames, table="profile_frames.txt",
     recorded: recording the host's operators as well slows a frame of ~24k
     kernels many times over. With alone, the first pose_optimization call
     of the window is captured and re-run alone for its device time (kernels
-    and ms) and host time (prepare_frame alone is read in phase 5)."""
+    and ms) and host time (prepare_frame alone is read in phase 5). track
+    (tk, i) feeds frame i (default: imgs[i] to track_monocular)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1559,9 +2136,11 @@ def profile_frames(make_tk, imgs, frames, table="profile_frames.txt",
             return saved[name](*a, **kw)
         return run
 
+    track = track or (lambda tk, i: tk.track_monocular(imgs[i], 0.05 * i))
+
     def run(tk):
         for i in frames:
-            tk.track_monocular(imgs[i], 0.05 * i)
+            track(tk, i)
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()
@@ -1620,8 +2199,18 @@ def main() -> int:
     # float32: keep TF32 off for matmuls and cuDNN alike
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    with open(REPO / "chiprun_out" / "chip_smoke_log.txt", "w") as copy:
+        LOG_COPY.append(copy)
+        try:
+            return run(torch.device("cuda"))
+        finally:
+            LOG_COPY.remove(copy)
 
+
+def run(dev) -> int:
+    """Phases 1-7 on the card dev; raises on the first failure."""
+    import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -1664,7 +2253,12 @@ def main() -> int:
     log("phase 6 System: monocular, loop closing off, its own map")
     sys_rec = system_path(dev)
     phase_done("phase 6")
-    paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec))
+    log("phase 7 System: stereo, RGB-D and fisheye stereo, loop closing off")
+    st = stereo_path(dev)
+    phase_done("phase 7")
+    paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
+             ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
+             ("fisheye", st["fisheye"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -1674,7 +2268,7 @@ def main() -> int:
         # many pairs pass their gates
         r["real_frame_ms"] = {
             path: run["profile"]["own_kernels"][r["name"]]
-            for path, run in paths}
+            for path, run in paths if "profile" in run}
         r["real_frame_ms"]["ref_kf_frame"] = boot["profile"]["ref_kf_frame"][
             "own_kernels"][r["name"]]
         r["real_frame_ms"]["keyframe_event"] = sys_rec["event_profile"][
@@ -1686,17 +2280,20 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms", "plain_event_ms", "atlas", "unit",
+            "event_ms", "plain_event_ms", "atlas", "stereo", "unit",
             "launches_by_path", "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])
     boot_summary = {k: v for k, v in boot.items() if k != "launches"}
     sys_summary = {k: v for k, v in sys_rec.items() if k != "launches"}
+    st_summary = {name: {k: v for k, v in run.items()
+                         if k not in ("launches", "how")}
+                  for name, run in st.items()}
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rec],
                     "frame": summary, "bootstrap": boot_summary,
-                    "system": sys_summary,
+                    "system": sys_summary, "stereo": st_summary,
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,

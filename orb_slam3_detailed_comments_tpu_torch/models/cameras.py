@@ -169,7 +169,9 @@ def project_jac(cam: CameraParams, pc: torch.Tensor) -> torch.Tensor:
         flat = pc.reshape(-1, 3)
         J = torch.func.vmap(torch.func.jacfwd(
             lambda p: project(cam, p)))(flat)
-        return J.reshape(*pc.shape[:-1], 2, 3)
+        # forward-mode autodiff of the model hands back float64 here; the
+        # pose solver's normal equations are float32
+        return J.to(pc.dtype).reshape(*pc.shape[:-1], 2, 3)
     if cam.kind != PINHOLE:
         raise ValueError(f"unknown camera kind {cam.kind}")
     k1, k2, p1, p2, k3 = cam.dist

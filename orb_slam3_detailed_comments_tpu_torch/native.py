@@ -32,7 +32,8 @@ launches = {"cell_topk": 0, "gather_patches": 0, "hamming_best2": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "slam_cell_topk_levels": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "slam_cell_topk_levels": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                              _I, _P],
     "slam_gather_patches_levels": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                                    _P],
     "slam_hamming_best2": [_P, _I, _P, _P, _I, _P, _P, _P, _P],

@@ -36,7 +36,7 @@ class OrbConfig(NamedTuple):
     ini_th: float = 20.0    # reference iniThFAST (kept for config parity)
     min_th: float = 7.0     # reference minThFAST: weakest accepted corner
     cell: int = 32          # grid cell for uniform selection (the card's
-                            # cell_topk kernel takes 32 only)
+                            # cell_topk kernel takes 16, 32, 48, ...)
     k_per_cell: int = 8
     margin: int = 16        # FAST detection border
 

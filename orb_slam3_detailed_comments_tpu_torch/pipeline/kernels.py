@@ -1,7 +1,10 @@
-"""The device programs of monocular tracking and mapping.
+"""The device programs of visual tracking and mapping.
 
 Counterpart of ``pipeline/kernels.py`` of the JAX package (visual programs
-only): ``prepare_frame`` (ORB extraction + undistortion),
+only): ``prepare_frame`` (ORB extraction + undistortion), its stereo and
+RGB-D forms ``prepare_frame_stereo`` (rectified pair),
+``prepare_frame_stereo_fisheye`` (two cameras and their extrinsic) and
+``prepare_frame_rgbd`` (registered depth map),
 ``track_step_visual`` (motion-model projection search + pose GN, local-
 keyframe selection on point bitsets, local-map projection search + pose
 GN) and ``search_and_triangulate`` (new points from a keyframe pair).
@@ -19,7 +22,7 @@ import torch
 
 from ..lie import SE3, so3
 from ..models import cameras
-from ..ops import extractor, hamming, matching, triangulate
+from ..ops import extractor, hamming, matching, stereo, triangulate
 from ..ops.topk import stable_top
 from ..optim import pose_opt
 
@@ -40,6 +43,128 @@ def prepare_frame(img: torch.Tensor, cam: cameras.CameraParams,
     feat = extractor.extract(img, cfg, frontend)
     xyn = cameras.unproject(cam, feat.xy)[:, :2]
     return PreparedFrame(feat, cameras.undistort_points(cam, feat.xy), xyn)
+
+
+def prepare_frame_stereo(img_l: torch.Tensor, img_r: torch.Tensor,
+                         cam: cameras.CameraParams, bf: float,
+                         cfg: extractor.OrbConfig, n_levels: int = 8,
+                         scale: float = 1.2, frontend: str = "fused"):
+    """Stereo frame prep: extract both images, row-match, attach depth
+    (reference: Frame stereo ctor + ComputeStereoMatches, Frame.cc:1102).
+    Returns (PreparedFrame of the left image, depth [N], u_right [N]), all
+    on the images' device."""
+    prep = prepare_frame(img_l, cam, cfg, frontend)
+    feat_r = extractor.extract(img_r, cfg, frontend)
+    sm = stereo.stereo_match(
+        prep.xy_ud, prep.feat.level, prep.feat.desc, prep.feat.valid,
+        feat_r.xy, feat_r.level, feat_r.desc, feat_r.valid, img_l, img_r, bf,
+        min_z=max(bf / cam.fx * 2.0, 0.3), n_levels=n_levels, scale=scale)
+    return prep, sm.depth, sm.u_right
+
+
+def prepare_frame_stereo_fisheye(img_l: torch.Tensor, img_r: torch.Tensor,
+                                 cam_l: cameras.CameraParams,
+                                 cam_r: cameras.CameraParams,
+                                 R_rl: torch.Tensor, t_rl: torch.Tensor,
+                                 cfg: extractor.OrbConfig,
+                                 frontend: str = "fused"):
+    """Non-rectified (fisheye) stereo prep: descriptor matching gated by the
+    epipolar constraint of the known extrinsic, two-view triangulation, the
+    epipolar SAD sub-pixel refinement and re-triangulation (the JAX
+    package's ``KB8_SUBPIXEL = True``), then reprojection checks in both
+    views (reference: Frame::ComputeStereoFishEyeMatches, Frame.cc:1530 +
+    KannalaBrandt8::TriangulateMatches, KannalaBrandt8.cpp:327).
+
+    R_rl / t_rl: right <- left extrinsic, on the images' device. Returns
+    (PreparedFrame left, depth [N] (0 where no match), idx_r [N])."""
+    prep_l = prepare_frame(img_l, cam_l, cfg, frontend)
+    feat_r = extractor.extract(img_r, cfg, frontend)
+    depth, idx = fisheye_stereo_depth(prep_l, feat_r, img_l, img_r, cam_l,
+                                      cam_r, R_rl, t_rl)
+    return prep_l, depth, idx
+
+
+def fisheye_stereo_depth(prep_l: PreparedFrame, feat_r, img_l, img_r,
+                         cam_l: cameras.CameraParams,
+                         cam_r: cameras.CameraParams, R_rl: torch.Tensor,
+                         t_rl: torch.Tensor):
+    """prepare_frame_stereo_fisheye after the two extractions: (depth [N],
+    idx_r [N]) of the left features from the right image's features."""
+    xyn_r = cameras.unproject(cam_r, feat_r.xy)[:, :2]
+
+    # epipolar gate: l_r = E x_l with E = [t]x R (lines in the right camera)
+    E = so3.hat(t_rl) @ R_rl
+    Xl = torch.cat([prep_l.xyn, torch.ones_like(prep_l.xyn[:, :1])], dim=-1)
+    Xr = torch.cat([xyn_r, torch.ones_like(xyn_r[:, :1])], dim=-1)
+    l_r = Xl @ E.T
+    num = l_r @ Xr.T
+    d2 = num * num / torch.clamp(
+        (l_r[:, 0] ** 2 + l_r[:, 1] ** 2)[:, None], min=1e-12)
+    epi_ok = d2 * float(cam_l.fx) ** 2 < 3.84 * 4.0   # ~2 sigma of 2 px
+
+    res = matching.match_nn(prep_l.feat.desc, prep_l.feat.valid,
+                            feat_r.desc, feat_r.valid,
+                            max_dist=matching.TH_LOW, ratio=0.8, mutual=True,
+                            extra_mask=epi_ok)
+    idx = res.idx.long()
+    T_l = SE3(torch.eye(3, dtype=R_rl.dtype, device=R_rl.device),
+              torch.zeros_like(t_rl))
+    T_r = SE3(R_rl, t_rl)
+    X, tri_ok = triangulate.triangulate(T_l, prep_l.xyn, T_r, xyn_r[idx])
+
+    # epipolar SAD sub-pixel (beyond the reference, whose KB8 matches stay
+    # at integer keypoints): slide an 11x11 window along the epipolar
+    # tangent at the matched right feature, fit a parabola, re-triangulate
+    xy_r0 = feat_r.xy[idx]
+    uvr0 = cameras.project(cam_r, T_r.apply(X))
+    dtan = cameras.project(cam_r, T_r.apply(X * 1.05)) - uvr0
+    e_dir = dtan / torch.clamp(torch.linalg.norm(dtan, dim=-1, keepdim=True),
+                               min=1e-6)
+    baseline = torch.linalg.norm(t_rl)
+    # only matches with real depth information: past ~60 baselines one
+    # pixel of slide moves depth by far more than the SAD minimum resolves
+    near = X[:, 2] < 60.0 * baseline
+    delta, ok_ref = stereo.epipolar_sad_refine(
+        img_l, img_r, prep_l.feat.xy, xy_r0, e_dir, res.valid & tri_ok & near)
+    # wander guard: the descriptor match localised the feature to ~1 px
+    ok_ref = ok_ref & (torch.abs(delta) <= 2.5)
+    xy_r_use = xy_r0 + torch.where(ok_ref, delta,
+                                   torch.zeros_like(delta))[:, None] * e_dir
+    xyn_r_use = cameras.unproject(cam_r, xy_r_use)[:, :2]
+    X2, tri_ok2 = triangulate.triangulate(T_l, prep_l.xyn, T_r, xyn_r_use)
+    dz = X2[:, 2] / torch.clamp(X[:, 2], min=1e-6)
+    use = ok_ref & tri_ok2 & (dz > 0.8) & (dz < 1.25)
+    X = torch.where(use[:, None], X2, X)
+    tri_ok = torch.where(use, tri_ok2, tri_ok)
+    xy_r_chk = torch.where(use[:, None], xy_r_use, xy_r0)
+
+    # reprojection checks in both views (chi2 < 5.991, sigma 1 px)
+    X_r = T_r.apply(X)
+    e_l = torch.sum((cameras.project(cam_l, X) - prep_l.feat.xy) ** 2, dim=-1)
+    e_r = torch.sum((cameras.project(cam_r, X_r) - xy_r_chk) ** 2, dim=-1)
+    good = (res.valid & tri_ok & (X[:, 2] > baseline * 2)
+            & (X_r[:, 2] > baseline * 2) & (e_l < 5.991) & (e_r < 5.991))
+    depth = torch.where(good, X[:, 2], torch.zeros_like(X[:, 2]))
+    return depth, res.idx
+
+
+def prepare_frame_rgbd(img: torch.Tensor, depth_img: torch.Tensor,
+                       cam: cameras.CameraParams, bf: float,
+                       cfg: extractor.OrbConfig, frontend: str = "fused"):
+    """RGB-D frame prep: the registered depth map sampled at each keypoint
+    (reference: Frame RGB-D ctor ComputeStereoFromRGBD, Frame.cc:1487).
+    Returns (PreparedFrame, depth [N], virtual u_right [N])."""
+    prep = prepare_frame(img, cam, cfg, frontend)
+    H, W = depth_img.shape
+    u = torch.clamp(prep.feat.xy[:, 0].to(torch.int32), 0, W - 1).long()
+    v = torch.clamp(prep.feat.xy[:, 1].to(torch.int32), 0, H - 1).long()
+    z = depth_img[v, u]
+    z = torch.where(z > 0.05, z, torch.zeros_like(z))
+    # bf divided as a tensor: a Python number over a tensor is taken as a
+    # multiply by the reciprocal, one rounding off XLA's quotient
+    u_r = torch.where(z > 0, prep.xy_ud[:, 0] - torch.full_like(z, bf)
+                      / torch.clamp(z, min=1e-6), torch.full_like(z, -1.0))
+    return prep, z, u_r
 
 
 class ProjectedPoints(NamedTuple):

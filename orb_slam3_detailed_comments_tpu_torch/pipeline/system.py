@@ -1,4 +1,5 @@
-"""System facade: the public API, monocular with loop closing off.
+"""System facade: the public API, monocular, stereo (rectified or a
+two-camera rig) and RGB-D, with loop closing off.
 
 Counterpart of ``pipeline/system.py`` of the JAX package (reference: the
 System class, src/System.cc:60): builds the Atlas, the tracker and the
@@ -7,8 +8,8 @@ feeds frames, runs local mapping synchronously on each new keyframe (the
 reference's thread handoff at LocalMapping.cc:361 becomes a queue drained
 inline), and writes trajectories. Configurations the port does not run
 yet raise ``NotImplementedError`` naming the ROADMAP item that brings them:
-other sensors, loop closing and place recognition, the async mapping
-worker, IMU input.
+the inertial sensors and IMU input, loop closing and place recognition,
+the async mapping worker.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from ..models import cameras
 from ..utils import timing
 from . import kernels
 from .local_mapping import LocalMapper, LocalMappingConfig
-from .tracking import LOST, RECENTLY_LOST, Tracker, TrackingConfig
+from .tracking import (LOST, RECENTLY_LOST, SENSOR_MONO, SENSOR_RGBD,
+                       SENSOR_STEREO, Tracker, TrackingConfig)
 
 MONOCULAR = 0
 STEREO = 1
@@ -34,11 +36,15 @@ IMU_MONOCULAR = 3
 IMU_STEREO = 4
 IMU_RGBD = 5
 
-_SENSOR_ITEM = {STEREO: 9, RGBD: 9, IMU_MONOCULAR: 11, IMU_STEREO: 11,
-                IMU_RGBD: 11}
+_TRACKER_SENSOR = {MONOCULAR: SENSOR_MONO, STEREO: SENSOR_STEREO,
+                   RGBD: SENSOR_RGBD}
+# ROADMAP.md's queue items that bring what is not ported yet
+ITEM_PLACE_RECOGNITION = "1.4"   # place recognition, relocalisation, async
+ITEM_LOOP_CLOSING = "1.5"        # loops, merges, global BA
+ITEM_INERTIAL = "1.6"
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
         f"queue item {item})")
@@ -55,24 +61,49 @@ class System:
                  imu_calib=None, camera2=None, T_c1c2=None,
                  async_mapping: bool = False, orb_cfg=None,
                  max_kf_lag: int = 1, device=None):
-        if sensor not in (MONOCULAR, *_SENSOR_ITEM):
+        if sensor not in (MONOCULAR, STEREO, RGBD, IMU_MONOCULAR, IMU_STEREO,
+                          IMU_RGBD):
             raise ValueError(f"unknown sensor {sensor}")
-        if sensor != MONOCULAR:
-            _not_ported(f"sensor {sensor}", _SENSOR_ITEM[sensor])
-        if enable_loop_closing or vocab_path is not None:
-            _not_ported("loop closing and place recognition "
-                        "(enable_loop_closing=True, vocab_path)", 10)
+        if sensor not in _TRACKER_SENSOR:
+            _not_ported(f"the inertial sensor {sensor}", ITEM_INERTIAL)
+        if enable_loop_closing:
+            _not_ported("loop closing (enable_loop_closing=True)",
+                        ITEM_LOOP_CLOSING)
+        if vocab_path is not None:
+            _not_ported("place recognition (vocab_path)",
+                        ITEM_PLACE_RECOGNITION)
         if async_mapping:
-            _not_ported("the async mapping worker (async_mapping=True)", 10)
+            _not_ported("the async mapping worker (async_mapping=True)",
+                        ITEM_PLACE_RECOGNITION)
         self.device = device_mod.resolve(device)
         self.cam = cam
         self.sensor = sensor
         self.atlas = Atlas(map_cfg or MapConfig(), self.device)
         self.map = self.atlas.active
-        self.tracker = Tracker(cam, self.map, tracking_cfg or TrackingConfig(),
-                               orb_cfg=orb_cfg, device=self.device)
-        self.local_mapper = LocalMapper(self.map, cam,
-                                        mapping_cfg or LocalMappingConfig())
+        tsensor = _TRACKER_SENSOR[sensor]
+        T_rl = None
+        if T_c1c2 is not None:
+            # settings give T_c1_c2 (right in left); the matcher wants
+            # left -> right
+            T_rl = np.linalg.inv(np.asarray(T_c1c2, np.float64)).astype(
+                np.float32)
+        if tracking_cfg is None:
+            tracking_cfg = TrackingConfig()
+            if tsensor != SENSOR_MONO:
+                # thRefRatio: 0.9 mono / 0.75 stereo-RGBD (Tracking.cc:3737)
+                tracking_cfg.ref_ratio = 0.75
+        self.tracker = Tracker(cam, self.map, tracking_cfg, orb_cfg=orb_cfg,
+                               sensor=tsensor, bf=baseline * cam.fx,
+                               th_depth=th_depth, cam2=camera2, T_rl=T_rl,
+                               device=self.device)
+        if mapping_cfg is None:
+            # cnThObs 2 mono / 3 stereo-RGBD (LocalMapping.cc:461), and 10
+            # triangulation neighbours for stereo (LocalMapping.cc:510)
+            mapping_cfg = LocalMappingConfig()
+            if tsensor != SENSOR_MONO:
+                mapping_cfg.cull_min_obs = 3
+                mapping_cfg.n_covis_triangulate = 10
+        self.local_mapper = LocalMapper(self.map, cam, mapping_cfg)
         self._is_shutdown = False
         self._last_big_change = 0
         self.image_scale = 1.0   # Camera.newWidth/width (System::GetImageScale)
@@ -83,9 +114,48 @@ class System:
         """Feed one grayscale frame; returns 4x4 T_cw or None
         (reference: System::TrackMonocular, System.cc:441)."""
         if imu is not None:
-            _not_ported("IMU input", 11)
+            _not_ported("IMU input", ITEM_INERTIAL)
         pose = self.tracker.track_monocular(img, ts)
         return self._post_track(pose, ts)
+
+    def track_stereo(self, img_l, img_r, ts: float,
+                     imu=None) -> Optional[np.ndarray]:
+        """Feed one stereo pair (rectified, or of the two-camera rig);
+        returns 4x4 T_cw or None (reference: System::TrackStereo,
+        System.cc:277)."""
+        if imu is not None:
+            _not_ported("IMU input", ITEM_INERTIAL)
+        pose = self.tracker.track_stereo(img_l, img_r, ts)
+        return self._post_track(pose, ts)
+
+    def track_rgbd(self, img, depth, ts: float,
+                   imu=None) -> Optional[np.ndarray]:
+        """Feed one image and its registered depth map [H, W] (metres, 0 =
+        none); returns 4x4 T_cw or None (reference: System::TrackRGBD,
+        System.cc:361)."""
+        if imu is not None:
+            _not_ported("IMU input", ITEM_INERTIAL)
+        pose = self.tracker.track_rgbd(img, depth, ts)
+        return self._post_track(pose, ts)
+
+    def track_stereo_iter(self, items):
+        """Pipelined stereo ingestion, the stereo form of
+        track_monocular_iter: items yields (img_l, img_r, ts); the next
+        pair's extraction and matching is queued on the device before the
+        current frame's tracking walks its host stages. Bit-identical to
+        track_stereo."""
+        tk = self.tracker
+        prev = None
+        for item in items:
+            if len(item) > 3 and item[3] is not None:
+                _not_ported("IMU input", ITEM_INERTIAL)
+            cur = (*tk.prepare_stereo(item[0], item[1]), float(item[2]))
+            if prev is not None:
+                yield self._post_track(tk.track_prepared_stereo(*prev),
+                                       prev[2])
+            prev = cur
+        if prev is not None:
+            yield self._post_track(tk.track_prepared_stereo(*prev), prev[2])
 
     def track_monocular_iter(self, items):
         """Pipelined ingestion: the next frame's ORB extraction is queued on
@@ -98,10 +168,8 @@ class System:
         for item in items:
             img, ts = item[0], float(item[1])
             if len(item) > 2 and item[2] is not None:
-                _not_ported("IMU input", 11)
-            img = torch.as_tensor(np.asarray(img, np.float32) if isinstance(
-                img, np.ndarray) else img).to(self.device, torch.float32)
-            cur = (kernels.prepare_frame(img, self.cam, tk.orb_cfg,
+                _not_ported("IMU input", ITEM_INERTIAL)
+            cur = (kernels.prepare_frame(tk.image(img), self.cam, tk.orb_cfg,
                                          tk.cfg.frontend), ts)
             if prev is not None:
                 yield self._post_track(tk._track_frame(*prev), prev[1])

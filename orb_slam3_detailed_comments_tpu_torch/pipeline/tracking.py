@@ -1,4 +1,4 @@
-"""Tracking: the monocular, visual-only front-end state machine.
+"""Tracking: the visual front-end state machine (monocular, stereo, RGB-D).
 
 Counterpart of ``pipeline/tracking.py`` of the JAX package (reference:
 Tracking::Track, src/Tracking.cc:1971). States as in the reference
@@ -13,6 +13,13 @@ RECENTLY_LOST, LOST. From its first image a tracker builds its own map:
   -> a tracked frame becomes a keyframe when ``_need_new_keyframe`` says so
   (``_create_new_keyframe``), and its id joins ``new_keyframes``, the queue
   that ``System`` drains into the ``LocalMapper``.
+
+A stereo or RGB-D tracker (``sensor``, ``bf``) starts from one frame
+instead: its depth-backed features become the first keyframe's points
+(``_stereo_initialization``), and every keyframe adds close points from
+the frame's depth (``_create_depth_points``). The frame's depth stays on
+the device until the fused step's or the local-map stage's packed fetch
+brings it down with the rest.
 
 A tracker can also start from a map built elsewhere (``start_from_map``).
 The inertial, localisation-mode and relocalisation branches belong to
@@ -76,6 +83,7 @@ class FrameRecord:
     frame_id: int
     angles: Optional[np.ndarray] = None   # [N] keypoint angles, if fetched
     prepared: Optional[kernels.PreparedFrame] = None
+    depth: Optional[np.ndarray] = None    # [N] per-feature depth (stereo/RGBD)
 
 
 def _compose_np(A: SE3, B: SE3) -> SE3:
@@ -95,16 +103,37 @@ def _identity_np() -> SE3:
     return SE3(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
 
 
+SENSOR_MONO = 0
+SENSOR_STEREO = 1
+SENSOR_RGBD = 2
+
+
 class Tracker:
     def __init__(self, cam: cameras.CameraParams, mapstore: MapStore,
                  cfg: TrackingConfig = TrackingConfig(),
                  orb_cfg: Optional[extractor.OrbConfig] = None,
+                 sensor: int = SENSOR_MONO, bf: float = 0.0,
+                 th_depth: float = 35.0, cam2=None, T_rl=None,
                  device=None):
         self.device = device_mod.resolve(device)
         if mapstore.device != self.device:
             raise ValueError(f"map lives on {mapstore.device}, tracker on "
                              f"{self.device}")
         self.cam = cam
+        # second (non-rectified, fisheye) stereo camera and the right <- left
+        # extrinsic 4x4 (reference: the two-GeometricCamera stereo mode)
+        self.cam2 = cam2
+        self.T_rl = None if T_rl is None else np.asarray(T_rl, np.float32)
+        if cam2 is not None and T_rl is not None and bf <= 0.0:
+            bf = float(np.linalg.norm(self.T_rl[:3, 3])) * cam.fx
+        self.sensor = sensor
+        self.bf = bf                      # baseline * fx (stereo / RGB-D)
+        # close-point threshold = th_depth * baseline (reference ThDepth)
+        self.th_depth = th_depth * (bf / cam.fx) if bf > 0 else 0.0
+        # [N] per-feature depth of the current frame: a device tensor until
+        # a packed fetch brings it down, then numpy; None for monocular
+        self.cur_depth = None
+        self._rl_dev = None               # (R_rl, t_rl) on the device
         self.map = mapstore
         self.cfg = cfg
         self.orb_cfg = orb_cfg or extractor.OrbConfig(n_features=cfg.n_features)
@@ -163,23 +192,71 @@ class Tracker:
         """Process one grayscale frame [H, W] (numpy or tensor, 0..255);
         returns T_cw 4x4 or None if the frame was not tracked (reference:
         Tracking::GrabImageMonocular + Track(), Tracking.cc:1668,1971)."""
-        img = torch.as_tensor(np.asarray(img, np.float32) if isinstance(
-            img, np.ndarray) else img).to(self.device, torch.float32)
-        prep = kernels.prepare_frame(img, self.cam, self.orb_cfg,
+        prep = kernels.prepare_frame(self.image(img), self.cam, self.orb_cfg,
                                      self.cfg.frontend)
         return self._track_frame(prep, ts)
 
-    def _track_frame(self, prep: kernels.PreparedFrame,
-                     ts: float) -> Optional[np.ndarray]:
+    def image(self, img) -> torch.Tensor:
+        """An image [H, W] (numpy or tensor) as float32 on the device."""
+        return torch.as_tensor(np.asarray(img, np.float32) if isinstance(
+            img, np.ndarray) else img).to(self.device, torch.float32)
+
+    def prepare_stereo(self, img_l, img_r):
+        """(PreparedFrame, depth [N] on the device) of a stereo pair: row
+        matching for a rectified pair, epipolar matching and triangulation
+        for a two-camera rig (``cam2``)."""
+        img_l, img_r = self.image(img_l), self.image(img_r)
+        if self.cam2 is not None:
+            if self._rl_dev is None:
+                rl = torch.from_numpy(np.concatenate(
+                    [self.T_rl[:3, :3].reshape(-1), self.T_rl[:3, 3]])).to(
+                        self.device)
+                self._rl_dev = (rl[:9].reshape(3, 3), rl[9:])
+            prep, depth, _ = kernels.prepare_frame_stereo_fisheye(
+                img_l, img_r, self.cam, self.cam2, *self._rl_dev,
+                self.orb_cfg, self.cfg.frontend)
+        else:
+            prep, depth, _ = kernels.prepare_frame_stereo(
+                img_l, img_r, self.cam, self.bf, self.orb_cfg,
+                self.orb_cfg.n_levels, self.orb_cfg.scale, self.cfg.frontend)
+        return prep, depth
+
+    def track_stereo(self, img_l, img_r, ts: float) -> Optional[np.ndarray]:
+        """(reference: Tracking::GrabImageStereo, Tracking.cc:1523)"""
+        prep, depth = self.prepare_stereo(img_l, img_r)
+        return self._track_frame(prep, ts, depth)
+
+    def track_rgbd(self, img, depth_img, ts: float) -> Optional[np.ndarray]:
+        """(reference: Tracking::GrabImageRGBD, Tracking.cc:1613)"""
+        prep, depth, _ = kernels.prepare_frame_rgbd(
+            self.image(img), self.image(depth_img), self.cam, self.bf,
+            self.orb_cfg, self.cfg.frontend)
+        return self._track_frame(prep, ts, depth)
+
+    def track_prepared_stereo(self, prep: kernels.PreparedFrame, depth,
+                              ts: float) -> Optional[np.ndarray]:
+        """Track a stereo / RGB-D frame prepared ahead (pipelined ingestion:
+        System.track_stereo_iter)."""
+        return self._track_frame(prep, ts, depth)
+
+    def _track_frame(self, prep: kernels.PreparedFrame, ts: float,
+                     depth: Optional[torch.Tensor] = None
+                     ) -> Optional[np.ndarray]:
+        """One frame through the state machine; depth [N] (on the device)
+        for a stereo or RGB-D frame, None for a monocular one."""
         fid = self.frame_id
         self.frame_id += 1
+        self.cur_depth = depth
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             # a map that this tracker did not build and was not started
             # from would need relocalisation, which is not ported
             self.state = (LOST if self.map.n_kf > 0 and self.ref_kf < 0
                           else NOT_INITIALIZED)
         if self.state == NOT_INITIALIZED:
-            self._monocular_initialization(prep, ts, fid)
+            if depth is None:
+                self._monocular_initialization(prep, ts, fid)
+            else:
+                self._stereo_initialization(prep, depth, ts, fid)
             if self.state != OK:
                 return None
             return self._log_and_return(ts)
@@ -224,7 +301,8 @@ class Tracker:
                 self._create_new_keyframe(ts, fid)
             self.last = FrameRecord(self.cur_T, self.cur_match, ts, fid,
                                     angles=self._cur_angles,
-                                    prepared=self.cur_prep)
+                                    prepared=self.cur_prep,
+                                    depth=self.cur_depth)
             return self._log_and_return(ts)
 
         # --- lost handling (reference: Tracking.cc:2203-2262) ---
@@ -377,6 +455,81 @@ class Tracker:
         self.new_keyframes.extend([k1, k2])
 
     # ------------------------------------------------------------------
+    def _stereo_initialization(self, prep, depth, ts, fid):
+        """Instant map from one stereo / RGB-D frame: every feature with a
+        depth becomes a point of the first keyframe, at the identity pose
+        (reference: Tracking::StereoInitialization, Tracking.cc:2678). The
+        frame and its depth come down in one packed fetch."""
+        f = _frame_to_host(prep, depth)
+        good = (f["depth"] > 0) & f["valid"]
+        if good.sum() < 300:   # reference requires > 500 keypoints; the
+            return             # depth-valid subset here
+        m = self.map
+        idx = np.where(good)[0]
+        z = f["depth"][idx]
+        xyn = f["xyn"][idx]
+        X = np.stack([xyn[:, 0] * z, xyn[:, 1] * z, z], axis=1).astype(
+            np.float32)
+        feat_pt = np.full(m.cfg.n_feat, NO_POINT, np.int32)
+        pids = m.alloc_points(len(idx))
+        m.pt_xyz[pids] = X
+        m.pt_desc[pids] = f["desc"][idx]
+        m.pt_valid[pids] = True
+        feat_pt[idx] = pids
+        k = m.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                           ts, fid, f["xy_ud"], f["xyn"], f["level"],
+                           f["angle"], f["desc"], f["valid"], feat_pt)
+        m.pt_ref_kf[pids] = k
+        m.pt_first_kf[pids] = k
+        m.update_point_stats(pids)
+        self.ref_kf = self.last_kf_id = k
+        self.last_kf_frame_id = fid
+        self.cur_T = _identity_np()
+        self.cur_prep = prep
+        self.cur_match = feat_pt
+        self.cur_depth = f["depth"]
+        self._cur_angles = f["angle"]
+        self._cur_valid = f["valid"]
+        self.last = FrameRecord(_identity_np(), feat_pt, ts, fid,
+                                angles=self._cur_angles, prepared=prep)
+        self.velocity = None
+        self.state = OK
+        self.new_keyframes.append(k)
+
+    def _create_depth_points(self, k: int, max_new: int = 100):
+        """Close map points from the frame's depth for the features of
+        keyframe k that have no point yet, nearest first: every one closer
+        than th_depth, and at least max_new (reference: CreateNewKeyFrame's
+        stereo / RGB-D point creation, Tracking.cc:3865-3950). A tracked
+        frame's depth is on the host: the stage that tracked it fetched
+        it."""
+        if self.cur_depth is None or self.bf <= 0:
+            return
+        m = self.map
+        depth = self.cur_depth
+        free = ((m.kf_feat_point[k] == NO_POINT) & m.kf_feat_valid[k]
+                & (depth > 0))
+        idx = np.where(free)[0]
+        if len(idx) == 0:
+            return
+        z = depth[idx]
+        sel = []
+        for i in np.argsort(z):
+            if z[i] <= self.th_depth or len(sel) < max_new:
+                sel.append(i)
+            if len(sel) >= max_new and z[i] > self.th_depth:
+                break
+        idx = idx[np.asarray(sel, np.int64)]
+        z = depth[idx]
+        xyn = m.kf_feat_xyn[k][idx]
+        Xc = np.stack([xyn[:, 0] * z, xyn[:, 1] * z, z], 1).astype(np.float32)
+        R_cw, t_cw = m.kf_R[k], m.kf_t[k]
+        Xw = ((Xc - t_cw) @ R_cw).astype(np.float32)   # R_cw^T (Xc - t)
+        pids = m.add_points(Xw, m.kf_feat_desc[k][idx], ref_kf=k)
+        m.kf_feat_point[k, idx] = pids
+        m.update_point_stats(pids)
+
+    # ------------------------------------------------------------------
     def reset_for_new_map(self, new_map: MapStore):
         """Rebind to a fresh, empty map and restart initialisation
         (reference: Tracking::CreateMapInAtlas, Tracking.cc:3093). The frame
@@ -397,7 +550,7 @@ class Tracker:
 
     def _need_new_keyframe(self) -> bool:
         """(reference: Tracking::NeedNewKeyFrame, Tracking.cc:3625; the
-        monocular visual branch)"""
+        visual branches)"""
         n_tracked = int((self.cur_match >= 0).sum())
         # only reference points with >= minObs observers count: 3, or 2
         # while the map has <= 2 keyframes (Tracking.cc:3659)
@@ -422,14 +575,28 @@ class Tracker:
                                   int((obs[pts] >= min_obs).sum()))
             self._ref_tracked_key = key
             self._ref_tracked = ref_tracked
+        # stereo / RGB-D close-point pressure: few close points tracked but
+        # many close features untracked -> densify the near field
+        # (reference: bNeedToInsertClose, Tracking.cc:3674-3695)
+        need_close = False
+        if self.cur_depth is not None and self.bf > 0:
+            close = ((self.cur_depth > 0) & (self.cur_depth < self.th_depth)
+                     & self._cur_valid)
+            need_close = (int((close & (self.cur_match >= 0)).sum()) < 100
+                          and int((close & (self.cur_match < 0)).sum()) > 70)
         c1a = self.frame_id >= self.last_kf_frame_id + self.cfg.max_frames
         c1b = self.frame_id >= self.last_kf_frame_id + self.cfg.min_frames + 1
-        c2 = n_tracked < self.cfg.ref_ratio * ref_tracked and n_tracked > 15
+        # c1c (stereo / RGB-D only): tracking fell to a quarter of the anchor
+        # or close points are needed (reference: Tracking.cc:3711)
+        c1c = (self.sensor != SENSOR_MONO
+               and (n_tracked < 0.25 * ref_tracked or need_close))
+        c2 = ((n_tracked < self.cfg.ref_ratio * ref_tracked or need_close)
+              and n_tracked > 15)
         # periodic floor: after max_frames without a keyframe, insert even
         # if tracking has not decayed (the JAX package's deviation from the
         # reference's pure-c2 gate; keyframe culling removes the excess)
         periodic = self.cfg.periodic_kf and c1a and n_tracked > 15
-        return ((c1a or c1b) and c2) or periodic
+        return ((c1a or c1b or c1c) and c2) or periodic
 
     def _create_new_keyframe(self, ts, fid):
         """(reference: Tracking::CreateNewKeyFrame, Tracking.cc:3826): the
@@ -442,6 +609,7 @@ class Tracker:
         self.ref_kf = k
         self.last_kf_frame_id = fid
         self.last_kf_id = k
+        self._create_depth_points(k)
         self.new_keyframes.append(k)
 
     # ------------------------------------------------------------------
@@ -546,11 +714,15 @@ class Tracker:
             n_levels=self.orb_cfg.n_levels, local_cap=self.cfg.local_pts_cap,
             pt_proj8=dp["proj8"])
         self.n_steps += 1
-        # the single packed transfer of the whole frame
+        # the single packed transfer of the whole frame, the frame's depth
+        # with it
         (n1, ref_kf, match, R_cw, t_cw, ids2, visible2, cur_ang,
-         cur_valid) = device_mod.fetch_packed(
+         cur_valid, *depth) = device_mod.fetch_packed(
             [res.n1, res.ref_kf, res.match_pt, res.T_cw_R, res.T_cw_t,
-             res.ids2, res.visible2, res.angle, res.valid])
+             res.ids2, res.visible2, res.angle, res.valid]
+            + self._device_depth())
+        if depth:
+            self.cur_depth = depth[0]
         n1, ref_kf = int(n1), int(ref_kf)
         self.cur_prep = prep
         self._cur_angles = cur_ang
@@ -661,10 +833,14 @@ class Tracker:
         res = self._run_track(self.cur_prep, T_d, ids_d, proj, radius,
                               prior=self.cur_match)
         self.n_local_map_searches += 1
-        # one packed transfer for the whole stage
-        match, R_cw, t_cw, visible, cur_ang, cur_valid = device_mod.fetch_packed(
+        # one packed transfer for the whole stage, the frame's depth with it
+        (match, R_cw, t_cw, visible, cur_ang, cur_valid,
+         *depth) = device_mod.fetch_packed(
             [res.match_pt, res.T_cw_R, res.T_cw_t, proj.visible,
-             self.cur_prep.feat.angle, self.cur_prep.feat.valid])
+             self.cur_prep.feat.angle, self.cur_prep.feat.valid]
+            + self._device_depth())
+        if depth:
+            self.cur_depth = depth[0]
         m.pt_visible[ids[visible & (ids >= 0)]] += 1
         self._cur_angles = cur_ang
         self._cur_valid = cur_valid
@@ -674,15 +850,21 @@ class Tracker:
         self.cur_match = match
         return True
 
+    def _device_depth(self) -> list:
+        """[cur_depth] while the frame's depth is still on the device, for
+        the next packed fetch to carry; [] otherwise."""
+        return [self.cur_depth] if torch.is_tensor(self.cur_depth) else []
+
     def _update_found_counters(self):
         pts = self.cur_match[self.cur_match >= 0]
         self.map.pt_found[pts] += 1
 
 
-def _frame_to_host(prep: kernels.PreparedFrame) -> dict:
-    """A frame's keyframe fields as numpy arrays, in one transfer."""
+def _frame_to_host(prep: kernels.PreparedFrame, depth=None) -> dict:
+    """A frame's keyframe fields (and its depth, if given) as numpy arrays,
+    in one transfer."""
     f = prep.feat
-    xy_ud, xyn, level, angle, desc, valid = device_mod.fetch_packed(
-        [prep.xy_ud, prep.xyn, f.level, f.angle, f.desc, f.valid])
-    return dict(xy_ud=xy_ud, xyn=xyn, level=level, angle=angle, desc=desc,
-                valid=valid)
+    names = ("xy_ud", "xyn", "level", "angle", "desc", "valid", "depth")
+    parts = [prep.xy_ud, prep.xyn, f.level, f.angle, f.desc, f.valid]
+    return dict(zip(names, device_mod.fetch_packed(
+        parts + ([] if depth is None else [depth]))))

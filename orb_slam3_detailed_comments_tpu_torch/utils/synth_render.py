@@ -2,9 +2,11 @@
 
 Counterpart of a cv2-free subset of ``utils/synth_render.py`` of the JAX
 package: the same blob textures, world and trajectory (so a seed gives the
-same world in both packages), and a pinhole ray-cast renderer modelled on
-its ``render_frame_raycast`` that also returns the exact 3D hit of every
-ray. ``seed_map`` builds the map that tracking runs against from ground
+same world in both packages), and a ray-cast renderer for any camera
+model, modelled on its ``render_frame_raycast``, that also returns the
+exact 3D hit of every ray. ``render_stereo_pair`` and ``render_depth``
+(rectified stereo pairs, depth maps) are built on it: the JAX versions
+warp with ``cv2``. ``seed_map`` builds the map that tracking runs against from ground
 truth; it is a test and smoke fixture, not a SLAM feature.
 """
 from __future__ import annotations
@@ -88,14 +90,19 @@ def camera_centers(R_cw, t_cw):
 
 
 def raycast(cam: cameras.CameraParams, planes, R_cw, t_cw, uv: np.ndarray):
-    """Cast the pinhole rays through pixel coordinates uv [M, 2] (the
+    """Cast the camera's rays through pixel coordinates uv [M, 2] (the
     convention of ``cameras.project``: pixel (c, r) is the ray through
     u = c, v = r). Returns (intensity [M] float32, X_w [M, 3] float64,
-    hit [M] bool); the nearest plane wins, a miss reads 90."""
-    if cam.kind != cameras.PINHOLE or any(cam.dist):
-        raise ValueError("raycast renders an undistorted pinhole camera")
-    rays = np.stack([(uv[:, 0] - cam.cx) / cam.fx, (uv[:, 1] - cam.cy) / cam.fy,
-                     np.ones(len(uv))], axis=1)
+    hit [M] bool); the nearest plane wins, a miss reads 90. An undistorted
+    pinhole's rays are computed in float64, any other model's from
+    ``cameras.unproject_bearing`` in float32, as the JAX renderer does."""
+    if cam.kind == cameras.PINHOLE and not any(cam.dist):
+        rays = np.stack([(uv[:, 0] - cam.cx) / cam.fx,
+                         (uv[:, 1] - cam.cy) / cam.fy, np.ones(len(uv))],
+                        axis=1)
+    else:
+        rays = cameras.unproject_bearing(cam, torch.from_numpy(
+            np.asarray(uv, np.float32))).numpy().astype(np.float64)
     R_wc = R_cw.T.astype(np.float64)
     C_w = -R_wc @ t_cw.astype(np.float64)
     rays_w = rays @ R_wc.T
@@ -141,6 +148,30 @@ def render_frame_raycast(cam: cameras.CameraParams, planes, R_cw, t_cw):
     uv = np.stack([uu.reshape(-1), vv.reshape(-1)], 1).astype(np.float64)
     img, X, hit = raycast(cam, planes, R_cw, t_cw, uv)
     return img.reshape(H, W), X.reshape(H, W, 3), hit.reshape(H, W)
+
+
+def render_stereo_pair(cam: cameras.CameraParams, planes, R_cw, t_cw,
+                       baseline: float):
+    """A rectified left/right pair [H, W] float32: the right camera is the
+    left one displaced by baseline along its +x."""
+    left = render_frame_raycast(cam, planes, R_cw, t_cw)[0]
+    c = -R_cw.T @ t_cw
+    c_r = c + R_cw.T @ np.array([baseline, 0.0, 0.0])
+    t_r = (-R_cw @ c_r).astype(np.float32)
+    return left, render_frame_raycast(cam, planes, R_cw, t_r)[0]
+
+
+def camera_depth(R_cw, t_cw, X_w: np.ndarray, hit: np.ndarray) -> np.ndarray:
+    """Depth map [H, W] float32 from a ray cast's hits: the camera-frame z
+    of each pixel's hit, 0 where the ray hits nothing."""
+    z = X_w @ R_cw[2].astype(np.float64) + float(t_cw[2])
+    return np.where(hit, z, 0.0).astype(np.float32)
+
+
+def render_depth(cam: cameras.CameraParams, planes, R_cw, t_cw) -> np.ndarray:
+    """Exact per-pixel depth [H, W] float32 of the world seen from T_cw."""
+    _, X, hit = render_frame_raycast(cam, planes, R_cw, t_cw)
+    return camera_depth(R_cw, t_cw, X, hit)
 
 
 def seed_map(cam: cameras.CameraParams, planes, R_cw, t_cw, kf_every: int,

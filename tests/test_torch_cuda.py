@@ -9,6 +9,7 @@ with the card has no JAX, so run them without the suite's conftest:
 Tolerance: exact equality of values and indices, at the shapes of the
 752x480, 1024-feature main path plus constructed ties and gated rows
 (``cell_topk`` and ``gather_patches`` also over tables of 1 and 16 levels,
+``cell_topk`` over 17 levels and at cells 16, 24, 48 and 64,
 with ``chip_smoke.score_maps_case`` and ``chip_smoke.corners_case``), and
 for the best-2 searches also from 1 x 1 to 64 x 5000 with ties planted
 across and within the kernel's lanes (``chip_smoke.tie_case``).
@@ -74,7 +75,7 @@ def _main_path_layout():
 def test_cell_topk_levels_kernel_equals_plain(dev, rng):
     """The frame's one launch over the 8 level maps of a 752x480 frame
     (all-zero, tied, negative and -inf cells, scores past the content),
-    then tables of 1 and 16 levels; 17 are refused before any launch."""
+    then tables of 1 and 16 levels; 17 levels take two launches."""
     orb, shapes, contents = _main_path_layout()
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     maps = chip_smoke.score_maps_case(rng, shapes, f)
@@ -93,10 +94,59 @@ def test_cell_topk_levels_kernel_equals_plain(dev, rng):
     assert i[ncx + 4].tolist() == list(range(k))
     assert bool(torch.isinf(v[ncx + 4]).all())
     before = native.launches["cell_topk"]
-    with pytest.raises(ValueError, match="levels"):
-        topk.cell_topk_levels(maps * 2 + maps[:1], contents * 2
-                              + contents[:1], margin, k)
-    assert native.launches["cell_topk"] == before
+    m17, c17 = maps * 2 + maps[:1], contents * 2 + contents[:1]
+    v, i = topk.cell_topk_levels(m17, c17, margin, k)
+    assert native.launches["cell_topk"] == before + 2
+    vp, ip = topk.cell_topk_levels_plain(m17, c17, margin, k)
+    _same(v, vp)
+    _same(i, ip)
+
+
+@pytest.mark.parametrize("cell", [16, 48, 64, 80, 24])
+def test_cell_topk_levels_other_cells_equal_cpu(dev, rng, cell):
+    """OrbConfig(cell=16) and the other cells: the kernel for 16 (in
+    registers) and 48, 64 and 80 (the scan kernel), the plain version for
+    24 (area not a multiple of 128, the JAX package's rule), equal to the
+    CPU's result over 8 and 17 levels."""
+    orb, shapes, contents = _main_path_layout()
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    maps = chip_smoke.score_maps_case(rng, shapes, f)
+    k, margin = orb.k_per_cell, orb.margin
+    for m, c in ((maps, contents), (maps * 2 + maps[:1],
+                                    contents * 2 + contents[:1])):
+        before = native.launches["cell_topk"]
+        v, i = topk.cell_topk_levels(m, c, margin, k, cell)
+        want = -(-len(m) // topk.MAX_LEVELS) if cell != 24 else 0
+        assert native.launches["cell_topk"] == before + want
+        vc, ic = topk.cell_topk_levels([x.cpu() for x in m], c, margin, k,
+                                       cell)
+        _same(v, vc)
+        _same(i, ic)
+    C = 37
+    x = f(np.where(rng.uniform(size=(C, cell * cell)) < 0.08,
+                   rng.integers(7, 100, (C, cell * cell)), 0).astype(
+                       np.float32))
+    for a, b in zip(topk.cell_topk(x, k), topk.cell_topk(x.cpu(), k)):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("area", [128, 384, 2304, 200])
+def test_cell_topk_matrix_rows_equal_cpu(dev, rng, area):
+    """cell_topk on [C, A] rows that are not a square of 16 or 32: one
+    launch of the scan kernel for A of 128 m (1 x A cells, or the
+    [48 C, 48] view for 2304), none for 200; equal to the CPU, ties and
+    -inf rows included."""
+    C = 53
+    x = np.where(rng.uniform(size=(C, area)) < 0.08,
+                 rng.integers(7, 100, (C, area)), 0).astype(np.float32)
+    x[1, [5, area - 1]] = 42.0
+    x[2, :] = -np.inf
+    x = torch.from_numpy(x).to(dev)
+    before = native.launches["cell_topk"]
+    got = topk.cell_topk(x, 8)
+    assert native.launches["cell_topk"] == before + (area % 128 == 0)
+    for a, b in zip(got, topk.cell_topk(x.cpu(), 8)):
+        _same(a, b)
 
 
 def test_gather_patches_levels_kernel_equals_plain(dev, rng):

@@ -142,9 +142,13 @@ def test_matrix_entry_equals_levels_on_its_view():
 
 
 def test_levels_entries_raise_past_their_tables():
-    maps = [torch.zeros((32, 32)) for _ in range(topk.MAX_LEVELS + 1)]
-    with pytest.raises(ValueError, match="levels"):
-        topk.cell_topk_levels(maps, [(32, 32)] * len(maps), 0, 8)
+    """cell_topk_levels takes any number of levels (the kernel one launch a
+    MAX_LEVELS of them, the rows as from one table); gather_patches_levels
+    still refuses more images than its table holds."""
+    maps = [torch.full((32, 32), float(i)) for i in range(topk.MAX_LEVELS + 1)]
+    v, i = topk.cell_topk_levels(maps, [(32, 32)] * len(maps), 0, 8)
+    assert v.shape == (topk.MAX_LEVELS + 1, 8)
+    assert v[:, 0].tolist() == [float(i) for i in range(len(maps))]
     assert topk.cell_topk_levels(maps[1:], [(32, 32)] * topk.MAX_LEVELS,
                                  0, 8)[0].shape == (topk.MAX_LEVELS, 8)
     with pytest.raises(ValueError, match="content"):

@@ -110,14 +110,12 @@ def test_lost_map_is_reset_or_kept(frames):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sensor=system.STEREO), "item 9"),
-    (dict(sensor=system.RGBD), "item 9"),
-    (dict(sensor=system.IMU_MONOCULAR), "item 11"),
-    (dict(sensor=system.IMU_STEREO), "item 11"),
-    (dict(sensor=system.IMU_RGBD), "item 11"),
-    (dict(enable_loop_closing=True), "item 10"),
-    (dict(vocab_path="ORBvoc.txt"), "item 10"),
-    (dict(async_mapping=True), "item 10"),
+    (dict(sensor=system.IMU_MONOCULAR), "item 1.6"),
+    (dict(sensor=system.IMU_STEREO), "item 1.6"),
+    (dict(sensor=system.IMU_RGBD), "item 1.6"),
+    (dict(enable_loop_closing=True), "item 1.5"),
+    (dict(vocab_path="ORBvoc.txt"), "item 1.4"),
+    (dict(async_mapping=True), "item 1.4"),
 ])
 def test_unported_configurations_raise(kw, item):
     args = dict(enable_loop_closing=False, device="cpu")
@@ -128,7 +126,7 @@ def test_unported_configurations_raise(kw, item):
 
 
 def test_loop_closing_is_on_by_default_and_refused():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 1.5"):
         system.System(CAM, system.MONOCULAR, device="cpu")
     with pytest.raises(ValueError):
         system.System(CAM, 17, enable_loop_closing=False, device="cpu")
@@ -136,9 +134,9 @@ def test_loop_closing_is_on_by_default_and_refused():
 
 def test_imu_input_raises(frames):
     slam = _system()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 1.6"):
         slam.track_monocular(frames[0], 0.0, imu=(np.zeros((1, 3)),) * 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 1.6"):
         list(slam.track_monocular_iter([(frames[0], 0.0, object())]))
 
 
