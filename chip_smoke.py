@@ -12,15 +12,19 @@ Phases, each of which raises on failure:
      absolute tolerance); the best-2 searches also at shapes from 1 x 1 to
      64 x 5000 with ties planted across and within the kernel's lanes;
      dense_frontend both level by level and as the frame's one call for all
-     levels; cell_topk and gather_patches as the frame's one call over the 8
-     levels (all-zero, tied, negative and -inf cells, content edges, corners
-     outside the image), over tables of 1 and 16 levels (gather_patches
-     refusing 17, cell_topk taking 17 in two launches), cell_topk also at
+     levels, and over 17 levels in two launches; cell_topk and
+     gather_patches as the frame's one call over the 8 levels (all-zero,
+     tied, negative and -inf cells, content edges, corners outside the
+     image), over tables of 1 and 16 levels and of 17 in two launches,
+     cell_topk also at
      cells 16, 48, 64, 80 and 24 (the last on its plain version, the shape
      rule), and in their one-level cases (the [C, 1024], [C, 384] and
      [C, 2304] matrices; the "xla"
      front end's atlas; the stereo matcher's 12x12 and 12x22 windows of one
-     image, at corners clipped as ops/stereo.py clips them). Timed as
+     image, at corners clipped as ops/stereo.py clips them), and
+     hamming_best2_windowed also at place recognition's shapes (the loop
+     fuse's and the Sim3 re-verification's 2048 queries, the
+     relocalisation rescue's 4096). Timed as
      device time
      (torch.profiler, the "ms" of the JSON record) and with CUDA events
      around the host's calls (launch gaps included), beside the plain
@@ -48,12 +52,14 @@ Phases, each of which raises on failure:
      both front ends, holds the "xla" front end's features against the
      fused one's, and times whole steady frames on either, in turns. The
      bare tracker inserts keyframes here too, but no local mapper runs;
-  6. System path: System(cam, MONOCULAR, enable_loop_closing=False) on the
-     card, fed test_pipeline_mono's 60-frame orbit (world seed 7, ray-cast
-     frames): builds and keeps its own map (keyframe insertion, the
-     LocalMapper's triangulation, fusion, local BA and culling), gated by
+  6. System path: System(cam, MONOCULAR) at its defaults (loop closing
+     on, the bundled vocabulary) on the card, fed test_pipeline_mono's
+     60-frame orbit (world seed 7, ray-cast frames): builds and keeps its
+     own map (keyframe insertion, the LocalMapper's triangulation, fusion,
+     local BA and culling, place recognition on every keyframe), gated by
      test_mono_end_to_end's gates; every kernel's launches checked against
-     the frames' paths and the keyframe events' fuse searches; each event
+     the frames' paths, the keyframe events' fuse searches and place
+     recognition's searches; each event
      logged (host clock by stage, the local BA's camera count, points and
      keyframes created and culled); one event replayed on the CPU from a
      snapshot of the map and compared, profiled (device time, kernels, host
@@ -74,12 +80,22 @@ Phases, each of which raises on failure:
      prepare_frame_stereo and prepare_frame_stereo_fisheye on the card
      against the CPU; one steady stereo frame profiled
      (chiprun_out/profile_frame_stereo.txt) and prepare_frame_stereo alone
-     (chiprun_out/profile_prepare_stereo.txt).
+     (chiprun_out/profile_prepare_stereo.txt);
+  8. place recognition, at the cases of the JAX package's tests, frames
+     ray-cast on the card, every kernel's launches checked against the
+     frames and the searches: (a) the 140-frame loop around box world 11
+     (test_loop_detected_and_trajectory_consistent's gates; each closure's
+     keyframe count and global BA tier; the host clock of detection and
+     correction; the first verified detection replayed on the CPU: the
+     same candidates, the Sim3 within 1e-3); (b) relocalisation after a 6-
+     frame blackout (test_relocalization_after_blackout's gates, the host
+     clock of one relocalisation); (c) two sequences of world 7 in two
+     maps, merged (test_multimap_spawn_and_merge's gates).
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
-"stereo"), the card's name
+"stereo", phase 8's under "phase8"), the card's name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card or the port's package is not beside this script.
@@ -113,9 +129,11 @@ POPC_PER_SM_CLK = 16
 CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752, height=480)
 N_TRAJ = 80          # orbit frames; keyframes every KF_EVERY-th frame
 KF_EVERY = 2
-N_TRACK = 64         # tracked frames, 1 .. N_TRACK, all inside the seeded span
+N_TRACK = 34         # tracked frames, 1 .. N_TRACK, all inside the seeded span
 CPU_FRAMES = (20, 21)
-PROBE_FROM = 40      # sync count (3 frames) and profile (5) from here on
+# sync count (3 frames) and profile (5) from here on: steady frames, past
+# the tracker's keyframes at frames 1, 20 and 25
+PROBE_FROM = 26
 GATES = dict(tracked=0.95, median_m=0.01, max_m=0.05, cpu_match=0.99,
              cpu_pose=1e-3)
 
@@ -246,6 +264,7 @@ def kernel_phase(dev, rates):
     """Every kernel against its plain version at the main path's shapes,
     and the best-2 searches also at a shape that is no multiple of 128."""
     import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
     from orb_slam3_detailed_comments_tpu_torch.ops import (
         brief, extractor, hamming, layout, patches, pyramid, topk)
     rng = np.random.default_rng(0)
@@ -346,8 +365,15 @@ def kernel_phase(dev, rates):
                        level.shape[0], device=dev) % 2).to(torch.int32))):
         err = max(err, same(f"gather_patches ({len(im)} images)",
                             [gat(im, lv, rc)], [gat_plain(im, lv, rc)]))
-    must_raise("gather_patches (17 images)",
-               lambda: gat(blurs * 2 + blurs[:1], level, rc))
+    # 17 images: one launch a table of 16, each window from its own table
+    lv17 = torch.where(torch.arange(level.shape[0], device=dev) % 3 == 0,
+                       torch.full_like(level, 16), level)
+    n0 = native.launches["gather_patches"]
+    err = max(err, same("gather_patches (17 images)",
+                        [gat(blurs * 2 + blurs[:1], lv17, rc)],
+                        [gat_plain(blurs * 2 + blurs[:1], lv17, rc)]))
+    if native.launches["gather_patches"] != n0 + 2:
+        raise AssertionError("gather_patches (17 images): not 2 launches")
     # the library call: each level's patches as one index of the level's
     # windows view, at the corners the kernel computes
     starts = patch_starts(shapes, budgets, rc, pw)
@@ -407,25 +433,41 @@ def kernel_phase(dev, rates):
     t_lv = rng.integers(0, 8, n_feat).astype(np.int32)
     db = rng.integers(0, 2 ** 32, (n_feat, 8), dtype=np.uint64).astype(np.uint32)
     tv = rng.uniform(size=n_feat) < 0.98
-    def windowed_args(Q, rad, K=n_feat):
-        """Stage-like queries near the targets; returns (args, pairs that
-        pass the gates)."""
+    def windowed_args(Q, rad, K=n_feat, lo=-1, hi=1, level0=False,
+                      scaled=True):
+        """Stage-like queries near the targets, gated to levels [lo, hi]
+        about their own (level 0 for every query with level0, radius not
+        scaled by level without scaled); returns (args, pairs that pass
+        the gates)."""
         src = rng.integers(0, K, Q)
         q_uv = (t_xy[src] + rng.normal(0, 2.0, (Q, 2))).astype(np.float32)
-        q_lv = np.clip(t_lv[src] + rng.integers(-1, 2, Q), 0, 7).astype(np.int32)
+        q_lv = (np.zeros(Q, np.int32) if level0 else np.clip(
+            t_lv[src] + rng.integers(-1, 2, Q), 0, 7).astype(np.int32))
         da = db[src] ^ (rng.uniform(size=(Q, 8)) < 0.05).astype(np.uint32)
         qv = rng.uniform(size=Q) < 0.9
-        q_r = (rad * sf[q_lv]).astype(np.float32)
+        q_r = ((rad * sf[q_lv]) if scaled else np.full(Q, rad)).astype(
+            np.float32)
         q_r[1] = 0.0                                     # all-gated row
         args = (f(da.view(np.int32)), f(q_uv), f(q_lv), f(q_r),
-                f(np.full(Q, -1, np.int32)), f(np.ones(Q, np.int32)), f(qv),
-                f(db[:K].view(np.int32)), f(t_xy[:K]), f(t_lv[:K]), f(tv[:K]))
+                f(np.full(Q, lo, np.int32)), f(np.full(Q, hi, np.int32)),
+                f(qv), f(db[:K].view(np.int32)), f(t_xy[:K]), f(t_lv[:K]),
+                f(tv[:K]))
         du = np.abs(q_uv[:, None, 0] - t_xy[None, :K, 0])
         dv = np.abs(q_uv[:, None, 1] - t_xy[None, :K, 1])
         dl = t_lv[None, :K] - q_lv[:, None]
         return args, int(((du <= q_r[:, None]) & (dv <= q_r[:, None])
-                          & (dl >= -1) & (dl <= 1) & tv[None, :K]
+                          & (dl >= lo) & (dl <= hi) & tv[None, :K]
                           & qv[:, None]).sum())
+
+    def windowed_bound(calls, n_pass):
+        """The least time of a set of windowed calls (bytes: each call's
+        queries and the targets once; 8 gate operations a pair; per pair
+        that passes 8 XOR + 8 ADD + 2 compares and 8 __popc)."""
+        n_pairs = sum(a[0].shape[0] * a[7].shape[0] for a in calls)
+        nbytes = sum(a[0].shape[0] * (32 + 8 + 4 * 4 + 1 + 12)
+                     + a[7].shape[0] * (32 + 8 + 4 + 1) for a in calls)
+        return bound_ms(nbytes, n_int=8 * n_pairs + 18 * n_pass,
+                        n_popc=8 * n_pass, rates=rates)
 
     wcalls, n_pass = [], 0
     for Q, rad in ((n_feat, 15.0), (4096, 4.0)):
@@ -461,6 +503,30 @@ def kernel_phase(dev, rates):
         lambda: [hamming.hamming_best2_windowed(*a) for a in wcalls],
         lambda: [hamming.hamming_best2_windowed_plain(*a) for a in wcalls],
         plain_reps=5))
+    # the place-recognition callers' shapes (one call each): the loop fuse
+    # (2048 queries, radius 6, levels -2..2), the Sim3 re-verification's
+    # guided match (2048 queries at level 0, radius 8, levels -8..8) and
+    # the relocalisation rescue (local_pts_cap = 4096 queries, radius 10
+    # by level, levels -1..1)
+    callers = {}
+    for name, Q, kw in (
+            ("loop_fuse", 2048, dict(rad=6.0, lo=-2, hi=2, scaled=False)),
+            ("projection_pairs", 2048, dict(rad=8.0, lo=-8, hi=8,
+                                            level0=True, scaled=False)),
+            ("reloc_rescue", 4096, dict(rad=10.0))):
+        a, n = windowed_args(Q, **kw)
+        e = same(f"hamming_best2_windowed ({name}, {Q}x{n_feat})",
+                 hamming.hamming_best2_windowed(*a),
+                 hamming.hamming_best2_windowed_plain(*a))
+        rec[-1]["max_abs_err"] = max(rec[-1]["max_abs_err"], e)
+        b, by = windowed_bound([a], n)
+        callers[name] = timed(dict(
+            name=f"hamming_best2_windowed, {name}", max_abs_err=e,
+            bound_ms=b, bound_by=by, unit=f"one call, {Q}x{n_feat}"),
+            lambda a=a: hamming.hamming_best2_windowed(*a),
+            lambda a=a: hamming.hamming_best2_windowed_plain(*a),
+            plain_reps=3)
+    rec[-1]["callers"] = callers
 
     # 4. hamming_best2 (match_nn's unmasked branch): 1024 x 1024, timed as
     # the two calls of match_nn(mutual=True) on a reference-keyframe frame
@@ -493,7 +559,8 @@ def kernel_phase(dev, rates):
         name="hamming_best2", route="cuda", source=f"{PKG}/csrc/hamming.cu",
         replaces="orb_slam3_detailed_comments_tpu/ops/pallas_hamming.py:52",
         max_abs_err=err, bound_ms=b, bound_by=by,
-        unit="one reference-keyframe frame: the 2 calls of "
+        unit="one reference-keyframe frame, or one candidate of the "
+             "relocalisation or the Sim3 verification: the 2 calls of "
              "match_nn(mutual=True), 1024x1024 each"),
         lambda: [hamming.hamming_best2(*args), hamming.hamming_best2(*back)],
         lambda: [hamming.hamming_best2_plain(*args),
@@ -512,6 +579,10 @@ def kernel_phase(dev, rates):
         if "one_call_ms" in r:
             log(f"  {r['name']}, one 1024x1024 call: device "
                 f"{r['one_call_ms']:.4f} ms")
+        for name, q in r.get("callers", {}).items():
+            log(f"  {r['name']} at the {name} shape: equal to plain; device "
+                f"{q['ms']:.4f} ms (plain {q['plain_ms']:.4f}, bound "
+                f"{q['bound_ms']:.5f} by {q['bound_by']}) per {q['unit']}")
         if "atlas" in r:
             q = r["atlas"]
             log(f"  {r['name']} on an atlas: equal to plain; device "
@@ -573,15 +644,6 @@ def stereo_gather_check(dev, rng, f, same):
             f"{q['bound_ms'] / q['ms']:.0%} of it); CUDA events "
             f"{q['event_ms']:.4f} ms per {q['unit']}")
     return out
-
-
-def must_raise(name, fn):
-    """fn must refuse its arguments with a ValueError, before any launch."""
-    try:
-        fn()
-    except ValueError:
-        return
-    raise AssertionError(f"{name}: no error raised")
 
 
 def score_maps_case(rng, shapes, f):
@@ -762,8 +824,18 @@ def frontend_kernel_check(dev):
     torch.cuda.synchronize()
     if len(together) != len(levels):
         raise AssertionError("dense_frontend_levels: one result per level")
+    # 17 levels: two launches, each level's maps as one table gives them
+    from orb_slam3_detailed_comments_tpu_torch import native
+    n0 = native.launches["dense_frontend"]
+    lv17 = levels * 2 + levels[:1]
+    out17 = frontend.dense_frontend_levels(lv17)
+    if native.launches["dense_frontend"] != n0 + 2 or len(out17) != 17:
+        raise AssertionError("dense_frontend_levels (17 levels): not 2 "
+                             "launches")
     cases = ([(f"level {k} of the frame's one call", l, g)
               for k, (l, g) in enumerate(zip(levels, together))]
+             + [(f"level {k} of the 17-level call", l, g)
+                for k, (l, g) in enumerate(zip(lv17, out17))]
              + [(f"image {k} alone", l, None)
                 for k, l in enumerate(levels + extra)])
     for k, (what, lvl, got) in enumerate(cases):
@@ -806,7 +878,8 @@ def frontend_kernel_check(dev):
                 raise AssertionError(f"dense_frontend angles: {d} rad from "
                                      f"the plain version's on {what}")
     log(f"  dense_frontend: score and blur equal on {len(levels)} levels in "
-        f"one call, the same {len(levels)} alone and {len(extra)} extra "
+        f"one call, on 17 in two, the same {len(levels)} alone and "
+        f"{len(extra)} extra "
         f"shapes; worst moment error m10 "
         f"{worst['m10']:.4f} m01 {worst['m01']:.4f} (tolerance "
         f"{MOMENT_TOL}), worst angle error {worst['angle']:.2e} rad over "
@@ -828,6 +901,15 @@ def frontend_kernel_check(dev):
         lambda: frontend.dense_frontend_levels(levels),
         lambda: [frontend.dense_frontend_plain(l) for l in levels],
         plain_reps=5)
+
+
+def render_host(cam, planes, R_cw, t_cw, dev):
+    """A frame ray-cast on dev (``synth_render.render_image``, equal to the
+    numpy ray cast on the CPU) and brought to the host as numpy: the paths
+    feed host images, as a camera driver would."""
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render
+    return synth_render.render_image(cam, planes, R_cw, t_cw,
+                                     dev).cpu().numpy()
 
 
 # ---------------------------------------------------------------- phase 4
@@ -901,7 +983,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         f"pairs >= 15, in {seed_s:.1f} s")
     frames = list(range(1, n_track + 1))
     probe = frames[frames.index(probe_from):][:8]
-    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+    imgs = {i: render_host(cam, planes, R[i], t[i], dev)
             for i in frames}
     C = sr.camera_centers(R, t)
 
@@ -1000,7 +1082,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
 # and have inserted 24 keyframes more by frame 48; the port tracks every
 # frame to 55, the JAX package all but frame 53
 # (tests/run_bootstrap_fullsize.py prints both).
-N_BOOT = 48
+N_BOOT = 30
 BOOT_GATES = dict(init_by=15, min_points=100, steady_frames=10, ate_m=0.05,
                   cpu_match=0.99, cpu_pose=1e-3)
 
@@ -1030,7 +1112,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
     track_cfg = track_cfg or tracking.TrackingConfig()
     planes = sr.default_world(np.random.default_rng(3))
     R, t = sr.orbit_trajectory(60)
-    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+    imgs = {i: render_host(cam, planes, R[i], t[i], dev)
             for i in range(n_frames)}
     C = sr.camera_centers(R, t)
     ts = 0.05 * np.arange(len(C))
@@ -1227,12 +1309,44 @@ SYS_STAGES = ("KF insertion", "MP culling", "MP creation", "local BA",
               "KF culling")
 
 
+def reset_counts():
+    """Every kernel's launch count and the place-recognition search counts
+    to 0: the start of a path's run."""
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    native.reset_launches()
+    for key in loop_closing.SEARCHES:
+        loop_closing.SEARCHES[key] = 0
+
+
+def expected_launches(tk, n_frames, n_fuse, extractions=1):
+    """What a System run launches: extraction once a frame (``extractions``
+    a frame); two best-2 scans for each mutual match_nn (the
+    reference-keyframe search, visual odometry, the Sim3 verification's
+    and the relocalisation's matches); one projection search for each
+    stage-1 / stage-2 of a fused step, local-map stage outside it, fuse
+    search of a keyframe event, guided match of the Sim3 verification,
+    loop-fuse keyframe and relocalisation rescue."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    S = loop_closing.SEARCHES
+    return dict(dense_frontend=extractions * n_frames,
+                cell_topk=extractions * n_frames,
+                gather_patches=extractions * n_frames,
+                hamming_best2=2 * (tk.n_ref_kf_searches + tk.n_vo_searches
+                                   + S["sim3_match"] + S["reloc_match"]),
+                hamming_best2_windowed=2 * tk.n_steps
+                + tk.n_local_map_searches + n_fuse + S["projection"]
+                + S["loop_fuse"] + S["reloc_search"])
+
+
 def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
                 map_cfg=None, orb_cfg=None, track_cfg=None, mapping_cfg=None,
                 gates=SYS_GATES, replay_from=45, profile_from=50):
-    """System(cam, MONOCULAR, enable_loop_closing=False) fed the orbit:
-    gates the run with test_mono_end_to_end's gates, checks that each
-    kernel launched as often as the frames and keyframe events require,
+    """System(cam, MONOCULAR) at its defaults (loop closing on, the
+    bundled vocabulary) fed the orbit: gates the run with
+    test_mono_end_to_end's gates, checks that each kernel launched as
+    often as the frames, keyframe events and place-recognition searches
+    require,
     logs each keyframe event (host clock by span, the local BA's camera
     count, points created, culled and fused, keyframes culled), replays
     one event on the CPU from a snapshot of the map taken before it and
@@ -1248,7 +1362,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     from orb_slam3_detailed_comments_tpu_torch.ops import hamming
     from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
     from orb_slam3_detailed_comments_tpu_torch.pipeline import (
-        local_mapping, system, tracking)
+        local_mapping, loop_closing, system, tracking)
     from orb_slam3_detailed_comments_tpu_torch.utils import (
         evaluate_ate, synth_render as sr, timing)
 
@@ -1259,7 +1373,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     mapping_cfg = mapping_cfg or local_mapping.LocalMappingConfig()
     planes = sr.default_world(np.random.default_rng(world_seed))
     R, t = sr.orbit_trajectory(60)
-    imgs = {i: sr.render_frame_raycast(cam, planes, R[i], t[i])[0]
+    imgs = {i: render_host(cam, planes, R[i], t[i], dev)
             for i in range(n_frames)}
     C = sr.camera_centers(R, t)
     ts = 0.05 * np.arange(len(C))
@@ -1267,8 +1381,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
 
     slam = system.System(cam, system.MONOCULAR, map_cfg=map_cfg,
                          tracking_cfg=track_cfg, mapping_cfg=mapping_cfg,
-                         enable_loop_closing=False, orb_cfg=orb_cfg,
-                         device=dev)
+                         orb_cfg=orb_cfg, device=dev)
     tk, lm = slam.tracker, slam.local_mapper
     events, replay, frame = [], {}, [0]
     process = lm.process_keyframe
@@ -1308,7 +1421,8 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
 
     lm.process_keyframe = logged_process
     poses, times, how, prof_snap = [], [], {}, None
-    native.reset_launches()                 # the System path's run starts
+    n_pr = len(timing.samples("PR detection"))
+    reset_counts()                          # the System path's run starts
     for i in range(n_frames):
         frame[0] = i
         if i == profile_from:
@@ -1329,19 +1443,18 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     lm.process_keyframe = process
     log(f"frames by path: {how}")
 
-    # launches: extraction once a frame; the reference-keyframe search's
-    # two best-2 scans; two projection searches a fused step, one for each
-    # local-map stage outside it, one for each fuse search of an event
     n_fuse = sum(ev["fuse_searches"] for ev in events)
-    expect = dict(dense_frontend=n_frames, cell_topk=n_frames,
-                  gather_patches=n_frames,
-                  hamming_best2=2 * tk.n_ref_kf_searches,
-                  hamming_best2_windowed=2 * tk.n_steps
-                  + tk.n_local_map_searches + n_fuse)
+    expect = expected_launches(tk, n_frames, n_fuse)
+    searches = dict(loop_closing.SEARCHES)
+    pr_ms = [1e3 * x for x in timing.samples("PR detection")[n_pr:]]
     log(f"launches on the System path: {launches} (expected {expect}: "
         f"{tk.n_steps} fused steps, {tk.n_ref_kf_searches} reference-"
         f"keyframe and {tk.n_local_map_searches} local-map stages, "
-        f"{len(events)} keyframe events with {n_fuse} fuse searches)")
+        f"{len(events)} keyframe events with {n_fuse} fuse searches, "
+        f"place recognition {searches}); PR detection on "
+        f"{slam.loop_closer.n_processed} keyframes, host clock median "
+        f"{np.median(pr_ms) if pr_ms else 0.0:.1f} ms over {len(pr_ms)} "
+        f"spans; {slam.loop_closer.n_loops_closed} loops closed")
     if dev.type == "cuda":
         for name, want in expect.items():
             if launches[name] != want or want == 0:
@@ -1363,7 +1476,10 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
                lost=slam.is_lost(), last_tracked=int((mp >= 0).sum()),
                consistency=errs, rows=len(rows), ate_m=rmse, ate_poses=n_ate,
                ate_scale=scale, init_at=tracked[0] if tracked else None,
-               n_events=len(events), launches=launches)
+               n_events=len(events), launches=launches, searches=searches,
+               pr_detection_ms=pr_ms,
+               loops_closed=slam.loop_closer.n_loops_closed,
+               loop_closing=slam.enable_loop_closing)
     log(f"System: initialised at frame {rec['init_at']}; {len(tracked)}/"
         f"{n_frames} frames tracked; {slam.n_keyframes} keyframes, "
         f"{slam.n_map_points} points; state {rec['state']}, lost "
@@ -1466,10 +1582,10 @@ STEREO_GATES = dict(
     rgbd=dict(tracked=0.8, ate_poses=0.7, ate_m=0.04),
     fisheye=dict(tracked=0.7, ate_poses=0.6, ate_m=0.06),
     cpu_valid=0.99, cpu_depth_rel=1e-3, cpu_inv_depth=1e-6,
-    # whole-program depths outside cpu_depth_rel, each one with inputs that
-    # differ between the devices' front ends: the H100 read 1 (rectified)
-    # and 3 (KB8); the cap is those counts and a margin of one or two
-    cpu_outside=dict(stereo=2, fisheye=5))
+    # whole-program depths outside cpu_depth_rel: none, since the pyramid's
+    # resize rounds in one fixed order on both devices and the front ends
+    # keep the same keypoints (the H100 read 0 and 0)
+    cpu_outside=dict(stereo=0, fisheye=0))
 # one-image gathers a frame: the rectified matcher's 12x12 and 12x22, the
 # fisheye refinement's 12 of 12x12 (ops/stereo.py)
 SAD_GATHERS = dict(stereo=2, rgbd=0, fisheye=12)
@@ -1506,8 +1622,10 @@ def stereo_path(dev, cam_kw=CAM_KW, kb8_kw=KB8_KW, n_frames=STEREO_N,
     for i in range(n_frames):
         img, X, hit = sr.render_frame_raycast(cam, planes, R[i], t[i])
         rgbd.append((img, sr.camera_depth(R[i], t[i], X, hit)))
-        pairs.append(sr.render_stereo_pair(cam, planes, R[i], t[i],
-                                           BASELINE))
+        # render_stereo_pair's pair: this left image, the right one cast
+        pairs.append((img, render_host(
+            cam, planes, R[i], sr.stereo_right_t(R[i], t[i], BASELINE),
+            dev)))
     planes_f = sr.default_world(np.random.default_rng(17))
     Rf, tf = sr.orbit_trajectory(40)
     T_c1c2 = np.eye(4, dtype=np.float32)
@@ -1616,8 +1734,9 @@ def stereo_card_vs_cpu(dev, cam, kb8, bf, orb_cfg, pair, fish, T_c1c2,
     a depth within 1e-3 relative (or, past ~1 km, 1e-6 per metre in
     inverse depth); and every feature outside that tolerance in the whole
     programs is one whose inputs differ between the devices (within it on
-    the shared features), no more of them than gates["cpu_outside"]. Where
-    the devices' front ends part is logged by ``frontend_diff``."""
+    the shared features), no more of them than gates["cpu_outside"]; and
+    the devices' front ends must not part (``frontend_diff``: the same
+    keypoints on both, and an equal pyramid)."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.ops import (
         extractor, pyramid, stereo)
@@ -1680,8 +1799,8 @@ def stereo_card_vs_cpu(dev, cam, kb8, bf, orb_cfg, pair, fish, T_c1c2,
         differ = {side: frontend_diff(g, c) for side, g, c in (
             ("left", feats[dev.type][0].feat, feats["cpu"][0].feat),
             ("right", feats[dev.type][1], feats["cpu"][1]))}
-        # the pyramid is two matrix products a level, summed in another
-        # order by each device's library
+        # the pyramid's levels on each device (the resize rounds in one
+        # fixed order on both)
         pyr = [pyramid.build_pyramid(torch.from_numpy(imgs[0]).to(d_),
                                      orb_cfg.n_levels, orb_cfg.scale)
                for d_ in (dev, cpu)]
@@ -1703,9 +1822,12 @@ def stereo_card_vs_cpu(dev, cam, kb8, bf, orb_cfg, pair, fish, T_c1c2,
             f"card's matching agrees on {q['shared_valid_agree']:.4f}, "
             f"largest relative difference {q['shared_max_rel']:.2e}, "
             f"{q['shared_n_outside']} outside")
+        # the front ends must not part: the same keypoints, an equal pyramid
+        parted = (any(d["keypoints"] for d in differ.values())
+                  or any(differ["left"]["pyramid_max_diff"]))
         if (q["valid_agree"] < gates["cpu_valid"]
                 or q["shared_valid_agree"] < gates["cpu_valid"]
-                or q["shared_n_outside"] or unexplained
+                or q["shared_n_outside"] or unexplained or parted
                 or len(outside) > gates["cpu_outside"][name]):
             raise AssertionError(f"{name}: card and CPU depths disagree: "
                                  f"{q}")
@@ -2185,6 +2307,353 @@ def profile_frames(make_tk, imgs, frames, table="profile_frames.txt",
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+# place recognition, relocalisation, loop closing with global BA and map
+# merging, each at the cases of the JAX package's tests:
+# test_loop_closing.py's test_loop_detected_and_trajectory_consistent (8a)
+# and test_relocalization_after_blackout (8b), test_atlas_multimap.py's
+# test_multimap_spawn_and_merge (8c); ray-cast frames, rendered on the card
+LOOP_CAM_KW = dict(fx=400.0, fy=400.0, cx=376.0, cy=240.0, width=752,
+                   height=480)
+MERGE_CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752,
+                    height=480)
+LOOP_GATES = dict(tracked=0.7, loops=1, ate_m=0.20, replay_rel=1e-3)
+RELOC_GATES = dict(min_kf=5, matched=15)
+MERGE_GATES = dict(tracked1=0.7, tracked2=0.5, rows=0.7, ate_poses=0.6,
+                   ate_m=0.18)
+
+
+def run_system(slam, frames, ts, name, dev):
+    """Feed a System its frames with the counts at 0 just before; returns
+    (poses, launches, expected launches, host ms a frame)."""
+    from orb_slam3_detailed_comments_tpu_torch import native
+    sync = torch_sync(dev)
+    tk = slam.tracker
+    n_fuse0 = [0]
+    process = slam.local_mapper.process_keyframe
+
+    def counted(k):
+        process(k)
+        n_fuse0[0] += slam.local_mapper.last_event.get("fuse_searches", 0)
+
+    slam.local_mapper.process_keyframe = counted
+    reset_counts()
+    poses, times = [], []
+    for img, t in zip(frames, ts):
+        sync()
+        t0 = time.perf_counter()
+        poses.append(slam.track_monocular(img, float(t)))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(native.launches)
+    slam.local_mapper.process_keyframe = process
+    expect = expected_launches(tk, len(frames), n_fuse0[0])
+    log(f"{name}: launches {launches} (expected {expect})")
+    if dev.type == "cuda":
+        for k, want in expect.items():
+            if launches[k] != want or want == 0:
+                raise AssertionError(f"{name}: {k}: {launches[k]} launches, "
+                                     f"expected {want}")
+    return poses, launches, expect, times
+
+
+def torch_sync(dev):
+    import torch
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def span_ms(stage, since=0):
+    from orb_slam3_detailed_comments_tpu_torch.utils import timing
+    return [1e3 * x for x in timing.samples(stage)[since:]]
+
+
+def loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140, gates=LOOP_GATES,
+              map_cfg=None, track_cfg=None):
+    """8a: System(cam, MONOCULAR) at its defaults around box world seed
+    11 (loop_trajectory(radius=3, closes=1.05)): > 70 % of the frames
+    tracked, >= 1 loop closed, scale-aligned ATE < 0.20 m, a consistent
+    map; logs the keyframe count at each closure, the global BA's camera
+    count and tier, the host clock of the "PR detection" and "loop
+    correction" spans and each kernel's launches. The first detection that
+    verified a candidate is replayed on the CPU from a snapshot of the map
+    and its keyframe database: the same candidates and a Sim3 within
+    replay_rel."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        loop_closing, system)
+    from orb_slam3_detailed_comments_tpu_torch.placerec import (
+        keyframe_db, vocab)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+    cam = cameras.pinhole(**cam_kw)
+    walls = sr.box_world(np.random.default_rng(11))
+    R, t = sr.loop_trajectory(n_frames, radius=3.0, closes=1.05)
+    frames = [sr.render_image(cam, walls, R[i], t[i], dev)
+              for i in range(n_frames)]
+    ts = 0.05 * np.arange(n_frames)
+    kw = {} if map_cfg is None else dict(map_cfg=map_cfg)
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    slam = system.System(cam, system.MONOCULAR, device=dev, **kw)
+    closures, replay = [], {}
+    n_pr, n_lc = len(span_ms("PR detection")), len(span_ms("loop correction"))
+
+    def hooked(lc):
+        correct, detect = lc._correct_loop, lc._detect
+
+        def logged_correct(k, c, S):
+            n_kf = int(lc.map.n_kf)
+            out = correct(k, c, S)
+            closures.append(dict(k=int(k), c=int(c), n_kf=n_kf,
+                                 gba=list(lc.last_correction.get("gba", []))))
+            return out
+
+        def logged_detect(k):
+            out = detect(k)
+            if out is not None and "k" not in replay:
+                # _detect reads the map and the database and changes
+                # neither: the state after it is the state it saw
+                db = lc.kfdb
+                replay.update(
+                    k=int(k), c=int(out[0]), S=loop_closing.sim3_np(out[1]),
+                    cands=db.detect_candidates(lc.map, k,
+                                               lc.cfg.n_candidates),
+                    map=map_arrays(lc.map),
+                    cfg=dataclasses.replace(lc.map.cfg),
+                    db=dict(width=db.width, max_kf=db.max_kf,
+                            word_ids=db.word_ids.copy(),
+                            word_w=db.word_w.copy(), valid=db.valid.copy()))
+            return out
+        lc._correct_loop, lc._detect = logged_correct, logged_detect
+
+    build = slam._build_recognition
+
+    def build_hooked(*a, **k):
+        build(*a, **k)
+        hooked(slam.loop_closer)
+
+    slam._build_recognition = build_hooked
+    poses, launches, expect, times = run_system(slam, frames, ts, "8a loop",
+                                                dev)
+    lc = slam.loop_closer
+    rows = slam.trajectory_tum()
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(
+        ts, sr.camera_centers(R, t), np.array([r[0] for r in rows]),
+        np.array([r[1:4] for r in rows]))
+    errs = slam.check_map_consistency()
+    n_ok = sum(p is not None for p in poses)
+    pr, corr = span_ms("PR detection", n_pr), span_ms("loop correction", n_lc)
+    rec = dict(tracked=n_ok, keyframes=slam.n_keyframes,
+               loops_closed=lc.n_loops_closed, closures=closures,
+               ate_m=rmse, ate_poses=n_ate, ate_scale=scale,
+               consistency=errs, launches=launches,
+               searches=dict(loop_closing.SEARCHES),
+               pr_detection_ms=dict(n=len(pr), median=float(np.median(pr)),
+                                    p90=float(np.percentile(pr, 90)),
+                                    max=float(np.max(pr))),
+               loop_correction_ms=corr,
+               frame_ms_median=float(np.median(times)))
+    log(f"8a loop: {n_ok}/{n_frames} frames tracked, {slam.n_keyframes} "
+        f"keyframes, {lc.n_loops_closed} loops closed "
+        f"({lc.n_loops_rejected_projgate} rejected at the projection gate); "
+        f"closures (keyframe count, global BA C and tier a round): "
+        + "; ".join(f"{c['k']}<-{c['c']} at {c['n_kf']} KF, "
+                    + ", ".join(f"C={g['C']} {g['tier']}" for g in c["gba"])
+                    for c in closures)
+        + f"; scale-aligned ATE {rmse:.5f} m over {n_ate} poses (scale "
+        f"{scale:.4f}); consistency {errs}; host clock: PR detection median "
+        f"{rec['pr_detection_ms']['median']:.1f} ms p90 "
+        f"{rec['pr_detection_ms']['p90']:.1f} over {len(pr)} keyframes, loop "
+        f"correction {[round(x, 1) for x in corr]} ms; frame median "
+        f"{rec['frame_ms_median']:.1f} ms")
+    fails = [name for name, bad in (
+        ("frames tracked", n_ok <= gates["tracked"] * n_frames),
+        ("loops closed", lc.n_loops_closed < gates["loops"]),
+        ("ATE", not rmse < gates["ate_m"]),
+        ("map consistency", errs != [])) if bad]
+    if fails:
+        raise AssertionError(f"8a loop missed the gates: {fails}: {rec}")
+
+    # the first verified detection, once more on the CPU
+    if "k" not in replay:
+        raise AssertionError("8a loop: no detection to replay")
+    cpu = torch.device("cpu")
+    m = MapStore.from_numpy(replay["map"], replay["cfg"], device=cpu)
+    db = keyframe_db.KeyFrameDatabase(vocab.load(vocab.DEFAULT_PATH, cpu),
+                                      replay["db"]["max_kf"],
+                                      replay["db"]["width"])
+    for key in ("word_ids", "word_w", "valid"):
+        setattr(db, key, replay["db"][key])
+    cands = db.detect_candidates(m, replay["k"], lc.cfg.n_candidates)
+    out = loop_closing.verify_sim3_pair(m, replay["k"], m, replay["c"], cam,
+                                        lc.cfg)
+    if cands != replay["cands"] or out is None:
+        raise AssertionError(f"8a replay: candidates {cands} on the CPU, "
+                             f"{replay['cands']} on the card; CPU "
+                             f"verification {out is not None}")
+    Sc = loop_closing.sim3_np(out[1])
+    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-9))
+              for a, b in zip(Sc[:2], replay["S"][:2]))
+    rel = max(rel, abs(Sc[2] - replay["S"][2]) / replay["S"][2])
+    rec["replay"] = dict(k=replay["k"], c=replay["c"], candidates=cands,
+                         sim3_rel=rel, scale_card=replay["S"][2],
+                         scale_cpu=Sc[2])
+    log(f"8a replay of keyframe {replay['k']}'s detection on the CPU: the "
+        f"same candidates {cands}; Sim3 to {replay['c']} within {rel:.2e} "
+        f"relative (scale card {replay['S'][2]:.6f}, CPU {Sc[2]:.6f})")
+    if not rel < gates["replay_rel"]:
+        raise AssertionError(f"8a replay: the Sim3 differs by {rel}")
+    return rec
+
+
+def reloc_path(dev, cam_kw=LOOP_CAM_KW, gates=RELOC_GATES, map_cfg=None,
+               track_cfg=None):
+    """8b: world seed 5, 46 frames of the orbit, TrackingConfig(max_frames
+    =4): 30 frames tracked, 6 blank frames, then frames 26-29 again; the
+    tracker must recover, and _relocalize on frame 20 must give >= 15
+    matched points and a finite pose. Logs the host clock of one
+    relocalisation (3 runs)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        kernels, loop_closing, system, tracking)
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(5))
+    R, t = sr.orbit_trajectory(46)
+    frames = [sr.render_image(cam, planes, R[i], t[i], dev) for i in range(46)]
+    ts = 0.05 * np.arange(46)
+    kw = {} if map_cfg is None else dict(map_cfg=map_cfg)
+    slam = system.System(cam, system.MONOCULAR, device=dev,
+                         tracking_cfg=track_cfg or tracking.TrackingConfig(
+                             max_frames=4), **kw)
+    blank = torch.full_like(frames[0], 128.0)
+    feed = frames[:30] + [blank] * 6 + frames[26:30]
+    times = 0.05 * np.arange(36)
+    feed_ts = np.concatenate([times, ts[26:30] + 0.6])
+    state_30 = []
+    track = slam.track_monocular
+
+    def watch(img, t_):
+        out = track(img, t_)
+        if len(state_30) == 29:
+            state_30.append((slam.tracker.state, slam.map.n_kf))
+        else:
+            state_30.append(None)
+        return out
+
+    slam.track_monocular = watch
+    poses, launches, expect, _ = run_system(slam, feed, feed_ts, "8b reloc",
+                                            dev)
+    st30, n_kf30 = state_30[29]
+    after_blank = [p is not None for p in poses[30:36]]
+    recovered = next((26 + j for j, p in enumerate(poses[36:]) if p is not None),
+                     None)
+    prep = kernels.prepare_frame(frames[20], cam, slam.tracker.orb_cfg)
+    ms, out = [], None
+    sync = torch_sync(dev)
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        out = slam._relocalize(prep)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_match = int((out[2] >= 0).sum()) if out is not None else 0
+    finite = out is not None and bool(np.isfinite(out[0]).all()
+                                      and np.isfinite(out[1]).all())
+    rec = dict(state_at_30=int(st30), keyframes_at_30=int(n_kf30),
+               tracked_in_blackout=int(sum(after_blank)),
+               recovered_at=recovered,
+               relocalizations=slam.tracker.n_relocalizations,
+               reloc_matched=n_match, reloc_finite=finite,
+               reloc_ms=ms, launches=launches,
+               searches=dict(loop_closing.SEARCHES))
+    log(f"8b relocalisation: state {st30} with {n_kf30} keyframes at frame "
+        f"30; {sum(after_blank)} of 6 blank frames tracked; recovered at "
+        f"frame {recovered} ({slam.tracker.n_relocalizations} "
+        f"relocalisations in the tracker); _relocalize on frame 20: "
+        f"{n_match} matched points, finite {finite}, host clock "
+        f"{[round(x, 1) for x in ms]} ms")
+    fails = [name for name, bad in (
+        ("tracking at frame 30", st30 != tracking.OK
+         or n_kf30 <= gates["min_kf"]),
+        ("lost in the blackout", any(after_blank)),
+        ("recovery", recovered is None),
+        ("relocalisation", n_match < gates["matched"] or not finite)) if bad]
+    if fails:
+        raise AssertionError(f"8b missed the gates: {fails}: {rec}")
+    return rec
+
+
+def merge_path(dev, cam_kw=MERGE_CAM_KW, n=50, n2=30, gates=MERGE_GATES,
+               map_cfg=None, track_cfg=None):
+    """8c: world seed 7, n frames of the orbit, change_dataset(), the last
+    n2 frames again at ts + 10 s: 2 maps with the second active, >= 1
+    merge, joint scale-aligned ATE < 0.18 m over > 60 % of n + n2 poses;
+    a consistent map."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        loop_closing, system)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(7))
+    R, t = sr.orbit_trajectory(n)
+    frames = [sr.render_image(cam, planes, R[i], t[i], dev) for i in range(n)]
+    ts = 0.05 * np.arange(n)
+    ts2 = ts[-n2:] + 10.0
+    kw = {} if map_cfg is None else dict(map_cfg=map_cfg)
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    slam = system.System(cam, system.MONOCULAR, device=dev, **kw)
+    track = slam.track_monocular
+    switch = [0]
+
+    def feed(img, t_):
+        if switch[0] == n:
+            slam.change_dataset()
+        switch[0] += 1
+        return track(img, t_)
+
+    slam.track_monocular = feed
+    poses, launches, expect, _ = run_system(
+        slam, frames + frames[-n2:], np.concatenate([ts, ts2]), "8c merge",
+        dev)
+    ok1 = sum(p is not None for p in poses[:n])
+    ok2 = sum(p is not None for p in poses[n:])
+    rows = slam.trajectory_tum()
+    gt = sr.camera_centers(R, t)
+    rmse, npairs, scale = evaluate_ate.ate_rmse(
+        np.concatenate([ts, ts2]), np.concatenate([gt, gt[-n2:]]),
+        np.array([r[0] for r in rows]), np.array([r[1:4] for r in rows]))
+    errs = slam.check_map_consistency()
+    rec = dict(tracked1=ok1, tracked2=ok2, maps=len(slam.atlas.maps),
+               active=slam.atlas.active_id, merges=slam.atlas.n_merges,
+               rows=len(rows), ate_m=rmse, ate_poses=npairs,
+               ate_scale=scale, consistency=errs, launches=launches,
+               searches=dict(loop_closing.SEARCHES))
+    log(f"8c merge: {ok1}/{n} then {ok2}/{n2} frames tracked; "
+        f"{len(slam.atlas.maps)} maps, active {slam.atlas.active_id}, "
+        f"{slam.atlas.n_merges} merges; {len(rows)} rows; joint ATE "
+        f"{rmse:.5f} m over {npairs} poses (scale {scale:.4f}); "
+        f"consistency {errs}")
+    fails = [name for name, bad in (
+        ("first sequence", ok1 <= gates["tracked1"] * n),
+        ("second sequence", ok2 <= gates["tracked2"] * n2),
+        ("maps", len(slam.atlas.maps) != 2 or slam.atlas.active_id != 1),
+        ("merges", slam.atlas.n_merges < 1),
+        ("rows", len(rows) <= gates["rows"] * (n + n2)),
+        ("ATE", not (npairs > gates["ate_poses"] * (n + n2)
+                     and rmse < gates["ate_m"])),
+        ("map consistency", errs != [])) if bad]
+    if fails:
+        raise AssertionError(f"8c missed the gates: {fails}: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2209,7 +2678,7 @@ def main() -> int:
 
 
 def run(dev) -> int:
-    """Phases 1-7 on the card dev; raises on the first failure."""
+    """Phases 1-8 on the card dev; raises on the first failure."""
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2250,15 +2719,27 @@ def run(dev) -> int:
     log("phase 5 bootstrap path: from the first image")
     boot = bootstrap_path(dev)
     phase_done("phase 5")
-    log("phase 6 System: monocular, loop closing off, its own map")
+    log("phase 6 System: monocular at its defaults (loop closing on), its "
+        "own map")
     sys_rec = system_path(dev)
     phase_done("phase 6")
     log("phase 7 System: stereo, RGB-D and fisheye stereo, loop closing off")
     st = stereo_path(dev)
     phase_done("phase 7")
+    log("phase 8a loop: 140 frames around the box world, loop closing and "
+        "global BA")
+    loop = loop_path(dev)
+    phase_done("phase 8a")
+    log("phase 8b relocalisation after a blackout")
+    reloc = reloc_path(dev)
+    phase_done("phase 8b")
+    log("phase 8c two sequences, two maps, one merge")
+    merge = merge_path(dev)
+    phase_done("phase 8c")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
-             ("fisheye", st["fisheye"]))
+             ("fisheye", st["fisheye"]), ("loop", loop),
+             ("relocalisation", reloc), ("merge", merge))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -2280,8 +2761,8 @@ def run(dev) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms", "plain_event_ms", "atlas", "stereo", "unit",
-            "launches_by_path", "real_frame_ms")
+            "event_ms", "plain_event_ms", "atlas", "stereo", "callers",
+            "unit", "launches_by_path", "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])
@@ -2290,10 +2771,14 @@ def run(dev) -> int:
     st_summary = {name: {k: v for k, v in run.items()
                          if k not in ("launches", "how")}
                   for name, run in st.items()}
+    phase8 = {name: {k: v for k, v in run.items() if k != "launches"}
+              for name, run in (("loop", loop), ("relocalisation", reloc),
+                                ("merge", merge))}
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rec],
                     "frame": summary, "bootstrap": boot_summary,
                     "system": sys_summary, "stereo": st_summary,
+                    "phase8": phase8,
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,

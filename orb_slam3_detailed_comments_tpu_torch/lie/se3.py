@@ -48,3 +48,28 @@ def exp(xi: torch.Tensor) -> SE3:
     """se(3) exp: twist [..., 6] = (rho, phi) -> SE3 (t = Jl(phi) rho)."""
     rho, phi = xi[..., 0:3], xi[..., 3:6]
     return SE3(so3.exp(phi), _matvec(so3.left_jacobian(phi), rho))
+
+
+def log(T: SE3) -> torch.Tensor:
+    """SE3 -> twist [..., 6] = (rho, phi)."""
+    phi = so3.log(T.R)
+    rho = _matvec(so3.inv_left_jacobian(phi), T.t)
+    return torch.cat([rho, phi], dim=-1)
+
+
+def adjoint(T: SE3) -> torch.Tensor:
+    """Adjoint [..., 6, 6] for the (rho, phi) ordering:
+    Ad = [[R, hat(t) R], [0, R]]."""
+    top = torch.cat([T.R, so3.hat(T.t) @ T.R], dim=-1)
+    bot = torch.cat([torch.zeros_like(T.R), T.R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def boxplus(T: SE3, xi: torch.Tensor) -> SE3:
+    """Left-multiplicative update exp(xi) ∘ T (the GN/LM retraction)."""
+    return exp(xi).compose(T)
+
+
+def relative(T_a: SE3, T_b: SE3) -> SE3:
+    """T_a^-1 ∘ T_b."""
+    return T_a.inverse().compose(T_b)

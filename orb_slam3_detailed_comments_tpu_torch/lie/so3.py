@@ -1,6 +1,7 @@
-"""SO(3): the rotation-group ops that tracking uses, batched over leading dims.
+"""SO(3): rotation-group ops, batched over leading dims.
 
-Counterpart of ``lie/so3.py`` of the JAX package (reference: Sophus SO3).
+Counterpart of ``lie/so3.py`` of the JAX package (reference: Sophus SO3 and
+the right-Jacobian helpers of include/ImuTypes.h:254-260).
 Rotations are [..., 3, 3] float32 matrices; small-angle branches use Taylor
 series selected with ``torch.where``.
 """
@@ -95,6 +96,32 @@ def left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
+def right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr(w) = Jl(-w) (reference: ImuTypes RightJacobianSO3)."""
+    return left_jacobian(-w)
+
+
+def inv_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian: Jl^-1 = I - 1/2 hat(w) + D hat(w)^2,
+    D = 1/t^2 - (1 + cos t) / (2 t sin t), Taylor 1/12 + t^2/720."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
+    small = theta2 < _EPS
+    safe_t = torch.where(small, torch.ones_like(theta), theta)
+    D = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / torch.clamp(theta2, min=_EPS * _EPS)
+                    - (1.0 + torch.cos(safe_t))
+                    / torch.clamp(2.0 * safe_t * torch.sin(safe_t),
+                                  min=1e-12))
+    W = hat(w)
+    return _eye_like(W) - 0.5 * W + D[..., None, None] * (W @ W)
+
+
+def inv_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian (reference: ImuTypes InverseRightJacobianSO3)."""
+    return inv_left_jacobian(-w)
+
+
 def normalize(R: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize a drifting rotation matrix (Gram-Schmidt)."""
     r0 = R[..., 0, :]
@@ -104,6 +131,20 @@ def normalize(R: torch.Tensor) -> torch.Tensor:
     r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True)
     r2 = torch.linalg.cross(r0, r1, dim=-1)
     return torch.stack([r0, r1, r2], dim=-2)
+
+
+def from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (x, y, z, w) -> rotation matrix [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+    ], dim=-2)
 
 
 def to_quat(R: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ kernel clamps the column coordinate in its weight.
 
 ``dense_frontend_levels`` takes all levels of a frame: CPU tensors take the
 plain version level by level; CUDA tensors go to ``csrc/frontend.cu`` in one
-launch (one flat grid of 64x64 tiles over all levels) or raise.
+launch (one flat grid of 64x64 tiles over all levels) for every
+``MAX_LEVELS`` of them, or raise.
 ``dense_frontend`` is its one-level case.
 """
 from __future__ import annotations
@@ -47,7 +48,7 @@ _U_MAX = np.floor(np.sqrt(np.maximum(
     ).astype(np.int32)
 _TAPS = _gauss_kernel1d(7, 2.0)
 
-MAX_LEVELS = 16          # capacity of the kernel's by-value level table
+MAX_LEVELS = 16          # levels in the kernel's by-value table, a launch
 
 # host buffer handed to the C entry (kept alive for the process)
 _TAPS_C = (ctypes.c_float * 7)(*[float(x) for x in _TAPS])
@@ -140,18 +141,18 @@ def _check_kernel_umax() -> None:
 def dense_frontend_levels(levels):
     """The four dense maps of every level image of a frame.
 
-    levels: up to ``MAX_LEVELS`` [H, W] float32 tensors on one device.
-    Returns one (score, blur, m10, m01) tuple per level: the plain version
-    on the CPU, one kernel launch for all levels on the card."""
+    levels: [H, W] float32 tensors on one device. Returns one (score, blur,
+    m10, m01) tuple per level: the plain version on the CPU, one kernel
+    launch for every ``MAX_LEVELS`` levels on the card."""
     levels = list(levels)
     if not levels:
         return []
     dev = levels[0].device
     if any(l.device != dev for l in levels):
         raise ValueError("dense_frontend_levels: levels on different devices")
-    if len(levels) > MAX_LEVELS:
-        raise ValueError(f"dense_frontend_levels: {len(levels)} levels, the "
-                         f"kernel's table holds {MAX_LEVELS}")
+    if len(levels) > MAX_LEVELS and dev.type == "cuda":
+        return [maps for g in range(0, len(levels), MAX_LEVELS)
+                for maps in dense_frontend_levels(levels[g:g + MAX_LEVELS])]
     if dev.type == "cpu":
         return [dense_frontend_plain(l) for l in levels]
     if dev.type != "cuda":

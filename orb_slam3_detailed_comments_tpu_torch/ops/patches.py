@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from .. import native
 
 _LANES = 256       # the JAX layout's column slack past the widest level
-MAX_IMAGES = 16    # capacity of the kernel's by-value image table
+MAX_IMAGES = 16    # images in the kernel's by-value table, a launch
 
 
 def build_atlas(levels, widest: int, lanes_slack: int = _LANES):
@@ -114,14 +114,13 @@ def gather_patches_levels(images, level: torch.Tensor, rc: torch.Tensor,
                           ph: int, pw: int = 0) -> torch.Tensor:
     """Every keypoint's [ph, pw] window (pw defaults to ph) from the image
     its level names, at its corner: the plain version on the CPU, one
-    kernel launch on the card. images: up to ``MAX_IMAGES`` float32 tensors
-    on one device, each at least ph x pw; level [N] int32 in
-    [0, len(images)); rc [N, 2] int32."""
+    kernel launch on the card for every ``MAX_IMAGES`` images. images: one
+    or more float32 tensors on one device, each at least ph x pw; level
+    [N] int32 in [0, len(images)); rc [N, 2] int32."""
     images = list(images)
     pw = pw or ph
-    if not images or len(images) > MAX_IMAGES:
-        raise ValueError(f"gather_patches_levels: {len(images)} images, the "
-                         f"kernel's table holds 1 to {MAX_IMAGES}")
+    if not images:
+        raise ValueError("gather_patches_levels: no images")
     dev = images[0].device
     if any(t.device != dev for t in images + [level, rc]):
         raise ValueError("gather_patches_levels: tensors on different devices")
@@ -129,7 +128,20 @@ def gather_patches_levels(images, level: torch.Tensor, rc: torch.Tensor,
         return gather_patches_levels_plain(images, level, rc, ph, pw)
     if dev.type != "cuda":
         raise ValueError(f"gather_patches_levels: unsupported device {dev}")
-    return _launch(images, level, rc, ph, pw)
+    if len(images) <= MAX_IMAGES:
+        return _launch(images, level, rc, ph, pw)
+    # one launch a table of MAX_IMAGES images over every keypoint, its
+    # level shifted into the table; each keypoint keeps the windows of its
+    # own table (no host sync: no keypoint is selected out)
+    out = None
+    for g in range(0, len(images), MAX_IMAGES):
+        sub = images[g:g + MAX_IMAGES]
+        mine = (level >= g) & (level < g + len(sub))
+        part = _launch(sub, torch.clamp(level - g, 0, len(sub) - 1), rc, ph,
+                       pw)
+        out = part if out is None else torch.where(mine[:, None, None],
+                                                   part, out)
+    return out
 
 
 def gather_patches(atlas: torch.Tensor, rc: torch.Tensor, ph: int,

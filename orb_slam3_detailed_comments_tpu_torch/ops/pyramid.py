@@ -48,19 +48,46 @@ def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _resize_matrix_on(n_out: int, n_in: int, device: torch.device):
-    """``_resize_matrix`` uploaded once per device: a per-frame upload from
-    host memory would be a host sync."""
-    return torch.from_numpy(_resize_matrix(n_out, n_in)).to(device)
+def _taps_on(n_out: int, n_in: int, device: torch.device):
+    """(lo, hi, w_lo, w_hi): the two taps of each row of ``_resize_matrix``
+    and their weights (w_hi = 0 where both taps are one pixel: the row
+    then holds 1.0 there), uploaded once per device."""
+    m = _resize_matrix(n_out, n_in)
+    p = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5, 0.0,
+                n_in - 1)
+    lo = np.floor(p).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    rows = np.arange(n_out)
+    w_lo = m[rows, lo]
+    w_hi = np.where(hi != lo, m[rows, hi], 0.0).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (lo, hi, w_lo, w_hi))
 
 
-def resize_bilinear_mm(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
-    """Bilinear resize as two interpolation-matrix products (float32; keep
-    TF32 off on the card, see chip_smoke.py)."""
+def _two_tap(a: torch.Tensor, b: torch.Tensor, w_lo: torch.Tensor,
+             w_hi: torch.Tensor) -> torch.Tensor:
+    """w_lo * a + w_hi * b in the rounding order of the CPU BLAS's
+    interpolation products (XLA-CPU's too): the first product rounded to
+    float32, the second added to it with one rounding, as a fused
+    multiply-add does. The fused step runs as separate float64 operations
+    (the float32 product is exact in float64), so the card and the CPU
+    round it alike."""
+    first = torch.mul(a, w_lo).double()
+    second = torch.mul(b.double(), w_hi.double())
+    return torch.add(first, second).to(torch.float32)
+
+
+def resize_bilinear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """Bilinear resize with a fixed order of operations: rows first, then
+    columns, each output value the two taps of ``_resize_matrix``'s row
+    (``_two_tap``). It equals the matrix form ``(rh @ img) @ rw.T`` of the
+    CPU, and of the JAX package there, to the bit but where the float64
+    sum rounds onto a float32 tie; on the card the matrix form's library
+    rounds otherwise (``tests/test_torch_extractor.py``)."""
     ch, cw = img.shape
-    rh = _resize_matrix_on(nh, ch, img.device)
-    rw = _resize_matrix_on(nw, cw, img.device)
-    return (rh @ img) @ rw.T
+    lo, hi, wl, wh = _taps_on(nh, ch, img.device)
+    rows = _two_tap(img[lo], img[hi], wl[:, None], wh[:, None])
+    lo, hi, wl, wh = _taps_on(nw, cw, img.device)
+    return _two_tap(rows[:, lo], rows[:, hi], wl[None, :], wh[None, :])
 
 
 def _pad_edge(img: torch.Tensor, ph_before: int, ph_after: int,
@@ -88,7 +115,7 @@ def build_pyramid(img: torch.Tensor, n_levels: int = DEFAULT_N_LEVELS,
         if lv > 0:
             nh = int(round(h / scale ** lv))
             nw = int(round(w / scale ** lv))
-            cur = resize_bilinear_mm(cur, nh, nw)
+            cur = resize_bilinear(cur, nh, nw)
             ch, cw = nh, nw
         levels.append(_pad_edge(cur, 0, shapes[lv][0] - ch,
                                 0, shapes[lv][1] - cw))

@@ -11,8 +11,12 @@ V (per-point 3x3) and the [P, C, 6, 3] coupling W, the Schur system
 S = U - W V^-1 W^T, a dense Cholesky of the [6C, 6C] system, and batched
 back-substitution for the landmarks. Damping adapts with accept / reject.
 
-Only the table tier (C <= ``_TABLE_C_MAX`` cameras) is here: ``ba_solve``
-raises NotImplementedError above it.
+``ba_solve`` routes by the camera count C as the JAX package does: the
+table tier up to ``_TABLE_C_MAX`` cameras, the COO tier (``_ba_solve_coo``:
+per-observation scatter-adds into U, V and W, then the same Schur solve)
+up to ``_PCG_C_MIN``, and the matrix-free Schur-PCG solver of
+``optim/schur_pcg.py`` above it. Global BA takes every keyframe of a map,
+so it is the one caller of the upper two tiers.
 
 Where this differs from the JAX code, with the same results:
 
@@ -23,7 +27,11 @@ Where this differs from the JAX code, with the same results:
 * ``torch.linalg.cholesky_ex`` reports a non-positive-definite system in a
   flag where JAX's Cholesky returns NaN; the flag turns the step into NaN,
   which the same ``isfinite`` accept test then rejects;
-* per-entry poses are row gathers by camera index, not one-hot products.
+* per-entry poses are row gathers by camera index, not one-hot products;
+* the COO tier's scatter-adds sum in float64 and round once to float32:
+  ``index_add_`` on the card adds in an arbitrary order, and in float64
+  that order no longer shows in the float32 sums, so the card repeats
+  itself and stays within rounding of the CPU.
 
 The per-camera sums are float32 matrix products against the one-hot: keep
 TF32 off on the card (``device.resolve`` does).
@@ -164,9 +172,19 @@ def _schur_lm_solve(U, b_c, V, b_p, Wd, lam, fixed_cam, point_valid):
 # Relative cost decrease below which an accepted LM step ends the solve.
 _REL_TOL = 1e-6
 
-# Above this camera count the [P, d] tables outgrow their use; the JAX
-# package then assembles by COO scatter, which this port does not have yet.
+# Above this camera count the [P, d] tables outgrow their use: assemble by
+# COO scatter-add instead (global BA).
 _TABLE_C_MAX = 48
+
+# Above this camera count even the COO tier's dense [P, C, 6, 3] coupling
+# and [6C, 6C] Cholesky are too large: the matrix-free Schur-PCG solver.
+_PCG_C_MIN = 128
+
+
+def tier_of(C: int) -> str:
+    """The tier ``ba_solve`` takes for C cameras: "table", "coo" or "pcg"."""
+    return ("pcg" if C > _PCG_C_MIN else "coo" if C > _TABLE_C_MAX
+            else "table")
 
 
 class ObsTable(NamedTuple):
@@ -353,6 +371,105 @@ def _ba_solve_tables(prob: BAProblem, cam: cameras.CameraParams, iters: int,
     return BAResult(kf_R, kf_t, points, inlier, cost)
 
 
+def _coo_residuals(prob: BAProblem, cam, kf_R, kf_t, points):
+    T = SE3(kf_R[prob.obs_cam.long()], kf_t[prob.obs_cam.long()])
+    return reproj.residual_full(T, points[prob.obs_pt.long()], prob.obs_uv,
+                                cam)
+
+
+def _coo_robust_cost(prob: BAProblem, cam, kf_R, kf_t, points, obs_valid,
+                     delta2: float):
+    r, _, _, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t, points)
+    chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
+    rho = torch.where(chi2 <= delta2, chi2,
+                      2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0))
+                      - delta2)
+    return torch.sum(torch.where(obs_valid & depth_ok, rho,
+                                 torch.zeros_like(rho)))
+
+
+def segment_sum(values: torch.Tensor, segments: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Sum of the rows of values [O, ...] per segment id [O] -> [n, ...],
+    accumulated in float64 and rounded once to the values' type."""
+    out = torch.zeros((n, *values.shape[1:]), dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, segments.long(), values.double())
+    return out.to(values.dtype)
+
+
+def _outer2(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """sum_k A[:, k, :, None] * B[:, k, None, :] over the 2 residual rows."""
+    return A[:, 0, :, None] * B[:, 0, None, :] + A[:, 1, :, None] * B[:, 1, None, :]
+
+
+def _jt_r(J: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """[O, 2, k]^T x [O, 2] -> [O, k]."""
+    return J[:, 0, :] * r[:, 0, None] + J[:, 1, :] * r[:, 1, None]
+
+
+def _ba_solve_coo(prob: BAProblem, cam: cameras.CameraParams, iters: int,
+                  delta2: float, lm_lambda0: float) -> BAResult:
+    """COO scatter-add assembly for mid-size C (the table too wide, PCG not
+    yet warranted): U, b_c, V, b_p and the [P, C, 6, 3] coupling summed
+    per observation, then ``_schur_lm_solve``. Every iteration runs (the
+    JAX tier has no early exit either)."""
+    C = prob.kf_R.shape[0]
+    P = prob.points.shape[0]
+    dev = prob.points.device
+    oc, op = prob.obs_cam.long(), prob.obs_pt.long()
+    pair = op * C + oc
+
+    def run(kf_R, kf_t, points, obs_valid, n):
+        cost = _coo_robust_cost(prob, cam, kf_R, kf_t, points, obs_valid,
+                                delta2)
+        lam = torch.full((), lm_lambda0, dtype=torch.float32, device=dev)
+        for _ in range(n):
+            r, Jc, Jp, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t,
+                                                 points)
+            ok = obs_valid & depth_ok & prob.point_valid[op]
+            chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
+            w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
+            JcW = Jc * w[:, None, None]
+            JpW = Jp * w[:, None, None]
+            U = segment_sum(_outer2(JcW, Jc), oc, C)
+            b_c = segment_sum(_jt_r(JcW, r), oc, C)
+            V = segment_sum(_outer2(JpW, Jp), op, P)
+            b_p = segment_sum(_jt_r(JpW, r), op, P)
+            Wd = segment_sum(_outer2(JcW, Jp), pair, P * C).reshape(
+                P, C, 6, 3)
+            dc, dp = _schur_lm_solve(U, b_c, V, b_p, Wd, lam,
+                                     prob.fixed_cam, prob.point_valid)
+            T_new = se3.exp(dc).compose(SE3(kf_R, kf_t))
+            pts_new = points + dp
+            new_cost = _coo_robust_cost(prob, cam, T_new.R, T_new.t, pts_new,
+                                        obs_valid, delta2)
+            accept = ((new_cost < cost) & torch.isfinite(new_cost)
+                      & torch.isfinite(dc).all() & torch.isfinite(dp).all())
+            kf_R = torch.where(accept, T_new.R, kf_R)
+            kf_t = torch.where(accept, T_new.t, kf_t)
+            points = torch.where(accept, pts_new, points)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                              torch.clamp(lam * 4.0, max=1e2))
+            cost = torch.where(accept, new_cost, cost)
+        return kf_R, kf_t, points, cost
+
+    def gate(kf_R, kf_t, points, obs_valid, th):
+        r, _, _, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t, points)
+        chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
+        return obs_valid & depth_ok & (chi2 <= th)
+
+    n1 = max(iters // 3, 2)
+    kf_R, kf_t, points, _ = run(prob.kf_R, prob.kf_t, prob.points,
+                                prob.obs_valid, n1)
+    obs_valid = gate(kf_R, kf_t, points, prob.obs_valid, 2.0 * delta2)
+    kf_R, kf_t, points, cost = run(kf_R, kf_t, points, obs_valid,
+                                   iters - n1)
+    kf_R = SE3(kf_R, kf_t).normalized().R
+    inlier = gate(kf_R, kf_t, points, obs_valid, delta2)
+    return BAResult(kf_R, kf_t, points, inlier, cost)
+
+
 def ba_solve(prob: BAProblem, cam: cameras.CameraParams, iters: int = 10,
              delta2: float = reproj.CHI2_MONO, lm_lambda0: float = 1e-4,
              table_depth: int = 0, table: ObsTable | None = None) -> BAResult:
@@ -361,12 +478,24 @@ def ba_solve(prob: BAProblem, cam: cameras.CameraParams, iters: int = 10,
     table_depth: static depth of the observation table (0 = C). Callers
     pass the true maximum of observations per point, bucketed (see
     ``local_mapping.build_ba_problem``); observations beyond it are not
-    solved against. table: optional prebuilt table (``prepare_table``)."""
+    solved against. table: optional prebuilt table (``prepare_table``).
+    Above ``_TABLE_C_MAX`` cameras both are ignored: the COO tier, and
+    above ``_PCG_C_MIN`` the Schur-PCG solver, take the problem."""
     C = int(prob.kf_R.shape[0])
+    if C > _PCG_C_MIN:
+        from . import schur_pcg   # schur_pcg imports this module
+        return schur_pcg.ba_solve_pcg(prob, cam, iters, delta2, lm_lambda0)
     if C > _TABLE_C_MAX:
-        raise NotImplementedError(
-            f"ba_solve: {C} cameras exceed the table tier's "
-            f"{_TABLE_C_MAX}; the COO and PCG tiers are not ported")
+        return _ba_solve_coo(prob, cam, iters, delta2, lm_lambda0)
     if table is None:
         table = prepare_table(prob, table_depth)
     return _ba_solve_tables(prob, cam, iters, delta2, lm_lambda0, table)
+
+
+def ba_solve_fused(prob: BAProblem, cam: cameras.CameraParams,
+                   iters: int = 10, delta2: float = reproj.CHI2_MONO,
+                   lm_lambda0: float = 1e-4, table_depth: int = 0) -> BAResult:
+    """Build and solve in one call, with ``ba_solve``'s routing (the JAX
+    package's single-program form; here the same as ``ba_solve`` without a
+    prebuilt table)."""
+    return ba_solve(prob, cam, iters, delta2, lm_lambda0, table_depth)

@@ -22,8 +22,14 @@ the device until the fused step's or the local-map stage's packed fetch
 brings it down with the rest.
 
 A tracker can also start from a map built elsewhere (``start_from_map``).
-The inertial, localisation-mode and relocalisation branches belong to
-later slices: a lost tracker stays lost.
+A lost tracker relocalises through ``relocalizer`` (the System's
+place-recognition callback, reference Tracking::Relocalization,
+Tracking.cc:4324), also into a map it did not build; the local-map search
+stays widened for 2 frames after a relocalisation. In localisation mode
+(``localization_only``) the map is frozen: no keyframes, and when the map
+gives too few matches the frame is tracked on the last frame's
+depth-backed features (visual odometry, Tracking.cc:2279-2360). The
+inertial branches belong to a later slice.
 
 Per steady frame the host makes three copies: the image up, the small
 inputs (predicted pose, stage-1 candidate ids and angles) up as one packed
@@ -146,6 +152,13 @@ class Tracker:
         self.last_kf_frame_id = -999
         self.frame_id = 0
         self.lost_count = 0
+        self.localization_only = False   # frozen map (localisation mode)
+        # place-recognition callback: prep -> (R, t, match_pt, ref_kf) or
+        # None (System._relocalize)
+        self.relocalizer = None
+        self.n_relocalizations = 0
+        self.last_reloc_fid = -999
+        self.n_vo_searches = 0           # visual-odometry match_nn calls
         self.n_steps = 0                 # fused steps dispatched
         self.n_ref_kf_searches = 0       # reference-keyframe searches
         self.n_local_map_searches = 0    # local-map stages outside the step
@@ -161,14 +174,16 @@ class Tracker:
         self.radius_scale, self.inv_sigma2 = kernels.level_weights(
             self.orb_cfg.n_levels, self.orb_cfg.scale)
         self._inv_sigma2_dev = torch.from_numpy(self.inv_sigma2).to(self.device)
-        # stage-1 / stage-2 search radii per level, at the normal and the
-        # widened (first frame after seeding) scale, uploaded once
+        # stage-1 / stage-2 search radii per level at (stage-1, stage-2)
+        # widenings: normal, the first frame after seeding (both 3x) and the
+        # frames just after a relocalisation (the local map's 3x), uploaded
+        # once
         self._radii_dev = {
             widen: tuple(torch.from_numpy(
-                (widen * r * self.radius_scale).astype(np.float32)).to(
+                (w * r * self.radius_scale).astype(np.float32)).to(
                     self.device)
-                for r in (cfg.motion_radius, cfg.local_radius))
-            for widen in (1.0, 3.0)}
+                for w, r in zip(widen, (cfg.motion_radius, cfg.local_radius)))
+            for widen in ((1.0, 1.0), (3.0, 3.0), (1.0, 3.0))}
 
     def start_from_map(self, T_cw: SE3, ts: float, last_kf_id: int,
                        velocity: Optional[SE3] = None) -> None:
@@ -248,9 +263,10 @@ class Tracker:
         self.frame_id += 1
         self.cur_depth = depth
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
-            # a map that this tracker did not build and was not started
-            # from would need relocalisation, which is not ported
-            self.state = (LOST if self.map.n_kf > 0 and self.ref_kf < 0
+            # a map this tracker did not build (a loaded or frozen one):
+            # relocalise into it instead of initialising a new one
+            self.state = (LOST if self.localization_only
+                          or (self.map.n_kf > 0 and self.ref_kf < 0)
                           else NOT_INITIALIZED)
         if self.state == NOT_INITIALIZED:
             if depth is None:
@@ -263,8 +279,8 @@ class Tracker:
 
         # timestamp jump: the sequence skipped ahead (> 1 s); abandon the
         # frame (reference: Tracking.cc:2010-2043)
-        if (self.state == OK and self.last is not None
-                and ts - self.last.ts > 1.0):
+        if (self.state == OK and not self.localization_only
+                and self.last is not None and ts - self.last.ts > 1.0):
             self.state = LOST
             self.velocity = None
             return None
@@ -283,9 +299,17 @@ class Tracker:
             if r != "fail1":
                 fused = True
                 ok = r == "ok"
+        vo_mode = False
         if not ok and not fused:
             ok = self._track_reference_keyframe(prep, ts, fid)
-            if ok:
+            if not ok and self.localization_only:
+                # the frozen map gave too few matches: track frame to frame
+                # on the last frame's depth-backed features
+                ok = vo_mode = self._track_visual_odometry(prep)
+            if not ok and self.state in (RECENTLY_LOST, LOST) \
+                    and self.relocalizer is not None:
+                ok = self._relocalization(prep, fid)
+            if ok and not vo_mode:
                 ok = self._track_local_map()
         if ok:
             was_lost = self.state in (RECENTLY_LOST, LOST)
@@ -551,6 +575,8 @@ class Tracker:
     def _need_new_keyframe(self) -> bool:
         """(reference: Tracking::NeedNewKeyFrame, Tracking.cc:3625; the
         visual branches)"""
+        if self.localization_only:
+            return False     # mbOnlyTracking (Tracking.cc:3631)
         n_tracked = int((self.cur_match >= 0).sum())
         # only reference points with >= minObs observers count: 3, or 2
         # while the map has <= 2 keyframes (Tracking.cc:3659)
@@ -692,7 +718,12 @@ class Tracker:
             last_ang = (self.last.angles if self.last.angles is not None
                         else self.last.prepared.feat.angle.cpu().numpy())
             ang_of_pt[lm[sel]] = last_ang[sel]
-        radius1, radius2 = self._radii_dev[3.0 if seed_from_kfs else 1.0]
+        # both radii widened after seeding; the local map's alone for the
+        # 2 frames after a relocalisation (Tracking.cc:4039-4062)
+        radius1, radius2 = self._radii_dev[
+            (3.0, 3.0) if seed_from_kfs else
+            (1.0, 3.0) if self.frame_id <= self.last_reloc_fid + 2 else
+            (1.0, 1.0)]
         # the frame's small inputs in ONE upload: pose, stage-1 angles, and
         # the stage-1 ids as int32 bits carried in float32 words
         packed = torch.from_numpy(np.concatenate([
@@ -825,11 +856,16 @@ class Tracker:
         pt_ids = m.local_point_ids(np.asarray(local_kfs))
         T_d = self._pose_to_device(self.cur_T)
         ids, ids_d, proj = self._candidate_points(pt_ids, T_d)
-        # while re-acquiring from RECENTLY_LOST the window widens to the
-        # motion-model radius (reference: Tracking.cc:4039-4062)
-        widen = (self.state == RECENTLY_LOST
-                 and self.cfg.motion_radius > self.cfg.local_radius)
-        radius = self._radii_dev[1.0][0 if widen else 1]
+        # widened 3x for the 2 frames after a relocalisation, and to the
+        # motion-model radius while re-acquiring from RECENTLY_LOST
+        # (reference: Tracking.cc:4039-4062)
+        if self.frame_id <= self.last_reloc_fid + 2:
+            radius = self._radii_dev[(1.0, 3.0)][1]
+        elif (self.state == RECENTLY_LOST
+              and self.cfg.motion_radius > self.cfg.local_radius):
+            radius = self._radii_dev[(1.0, 1.0)][0]
+        else:
+            radius = self._radii_dev[(1.0, 1.0)][1]
         res = self._run_track(self.cur_prep, T_d, ids_d, proj, radius,
                               prior=self.cur_match)
         self.n_local_map_searches += 1
@@ -848,6 +884,89 @@ class Tracker:
             return False
         self.cur_T = SE3(R_cw, t_cw)
         self.cur_match = match
+        return True
+
+    def _relocalization(self, prep, fid) -> bool:
+        """(reference: Tracking::Relocalization, Tracking.cc:4324): the
+        System's candidates and PnP pose, optimised once more here over the
+        matched points; accepted at >= 15 inliers."""
+        out = self.relocalizer(prep)
+        if out is None:
+            return False
+        R, t, match_pt, ref = out
+        has = match_pt >= 0
+        X, has_d, R_d, t_d = device_mod.upload_packed(
+            [self.map.pt_xyz[np.where(has, match_pt, 0)], has,
+             np.asarray(R, np.float32), np.asarray(t, np.float32)],
+            self.device)
+        opt = pose_opt.pose_optimization(
+            SE3(R_d, t_d), X, prep.xy_ud,
+            self._inv_sigma2_dev[prep.feat.level.long()],
+            has_d & prep.feat.valid, self.cam)
+        n_in, inl, R_cw, t_cw = device_mod.fetch_packed(
+            [opt.n_inliers, opt.inlier, opt.T_cw.R, opt.T_cw.t])
+        if int(n_in) < 15:
+            return False
+        self.cur_T = SE3(R_cw, t_cw)
+        self.cur_prep = prep
+        self.cur_match = np.where(inl, match_pt, -1).astype(np.int32)
+        self.ref_kf = int(ref)
+        self.n_relocalizations += 1
+        self.last_reloc_fid = fid
+        return True
+
+    def _track_visual_odometry(self, prep) -> bool:
+        """Localisation-mode rescue: match the last frame's depth-backed
+        features against this frame and optimise the pose on their
+        back-projections (reference: the mbVO branch, Tracking.cc:2279-2360,
+        and UpdateLastFrame's temporal points, Tracking.cc:3270-3340).
+        Stereo / RGB-D only (it needs per-feature depth)."""
+        last = self.last
+        if (last is None or last.depth is None or last.prepared is None):
+            return False
+        lp = last.prepared
+        lvalid, xyn = device_mod.fetch_packed([lp.feat.valid, lp.xyn])
+        depth = np.asarray(last.depth)
+        lvalid = lvalid & (depth > 0)
+        if lvalid.sum() < 40:
+            return False
+        res = matching.match_nn(
+            lp.feat.desc, torch.from_numpy(lvalid).to(self.device),
+            prep.feat.desc, prep.feat.valid, max_dist=matching.TH_HIGH,
+            ratio=0.9, mutual=True)
+        self.n_vo_searches += 1
+        # one packed transfer, the frame's depth with it (the next frame's
+        # odometry reads it on the host)
+        (valid, idx, xy_ud, cur_ang, cur_valid,
+         *cur_depth) = device_mod.fetch_packed(
+            [res.valid, res.idx, prep.xy_ud, prep.feat.angle,
+             prep.feat.valid] + self._device_depth())
+        if cur_depth:
+            self.cur_depth = cur_depth[0]
+        if valid.sum() < 20:
+            return False
+        z = np.where(lvalid, depth, 1.0).astype(np.float32)
+        Xc = np.stack([xyn[:, 0] * z, xyn[:, 1] * z, z], 1)
+        R_lw, t_lw = np.asarray(last.T_cw.R), np.asarray(last.T_cw.t)
+        Xw = ((Xc - t_lw) @ R_lw).astype(np.float32)
+        uv = xy_ud[np.where(valid, idx, 0)]
+        T0 = (_compose_np(self.velocity, last.T_cw)
+              if self.velocity is not None else last.T_cw)
+        Xw_d, uv_d, v_d, R0, t0 = device_mod.upload_packed(
+            [Xw, uv, valid, np.asarray(T0.R, np.float32),
+             np.asarray(T0.t, np.float32)], self.device)
+        out = pose_opt.pose_optimization(
+            SE3(R0, t0), Xw_d, uv_d, torch.ones_like(Xw_d[:, 0]), v_d,
+            self.cam)
+        n_inl, R_n, t_n = device_mod.fetch_packed(
+            [out.n_inliers, out.T_cw.R, out.T_cw.t])
+        if int(n_inl) < 20 or not np.isfinite(t_n).all():
+            return False
+        self.cur_T = SE3(R_n, t_n)
+        self.cur_prep = prep
+        self.cur_match = np.full(valid.shape[0], -1, np.int32)
+        self._cur_angles = cur_ang
+        self._cur_valid = cur_valid
         return True
 
     def _device_depth(self) -> list:

@@ -1,8 +1,9 @@
 """Synthetic textured-plane world, ray-cast renderer and map-seeding fixture.
 
 Counterpart of a cv2-free subset of ``utils/synth_render.py`` of the JAX
-package: the same blob textures, world and trajectory (so a seed gives the
-same world in both packages), and a ray-cast renderer for any camera
+package: the same blob textures, worlds (``default_world``, the loop
+world ``box_world``) and trajectories (``orbit_trajectory``,
+``loop_trajectory``), so a seed gives the same world in both packages, and a ray-cast renderer for any camera
 model, modelled on its ``render_frame_raycast``, that also returns the
 exact 3D hit of every ray. ``render_stereo_pair`` and ``render_depth``
 (rectified stereo pairs, depth maps) are built on it: the JAX versions
@@ -65,6 +66,39 @@ def _rodrigues(w: np.ndarray) -> np.ndarray:
     k = w / th
     K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def box_world(rng, half=8.0, tex_size=1400):
+    """Four textured walls of a box in x-z (y vertical): a camera circling
+    inside and facing outward revisits the first wall after 360 degrees."""
+    ppm = tex_size / (2 * half)
+    e_y = np.array([0, 1 / ppm, 0.0])
+    return [
+        Plane(np.array([-half, -half, half]), np.array([1 / ppm, 0, 0]), e_y,
+              _texture(rng, tex_size)),
+        Plane(np.array([half, -half, half]), np.array([0, 0, -1 / ppm]), e_y,
+              _texture(rng, tex_size)),
+        Plane(np.array([half, -half, -half]), np.array([-1 / ppm, 0, 0]), e_y,
+              _texture(rng, tex_size)),
+        Plane(np.array([-half, -half, -half]), np.array([0, 0, 1 / ppm]), e_y,
+              _texture(rng, tex_size)),
+    ]
+
+
+def loop_trajectory(n_frames, radius=3.0, closes: float = 1.0):
+    """A circle of ``closes`` revolutions in the x-z plane, the camera
+    facing radially outward. Returns world -> camera (R_cw [T, 3, 3],
+    t_cw [T, 3])."""
+    Rs, ts = [], []
+    for i in range(n_frames):
+        a = 2 * np.pi * closes * i / n_frames
+        cw = np.array([radius * np.sin(a), 0.0, radius * np.cos(a)])
+        z = np.array([np.sin(a), 0.0, np.cos(a)])
+        x = np.array([np.cos(a), 0.0, -np.sin(a)])
+        R_cw = np.stack([x, np.cross(z, x), z], axis=1).T
+        Rs.append(R_cw.astype(np.float32))
+        ts.append((-R_cw @ cw).astype(np.float32))
+    return np.stack(Rs), np.stack(ts)
 
 
 def orbit_trajectory(n_frames, radius=0.0, advance=2.5, sway=0.35,
@@ -150,15 +184,91 @@ def render_frame_raycast(cam: cameras.CameraParams, planes, R_cw, t_cw):
     return img.reshape(H, W), X.reshape(H, W, 3), hit.reshape(H, W)
 
 
+_TEXTURES: dict = {}    # (id, device) -> (texture, its device copy)
+
+
+def _texture_on(tex: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A texture's device copy, uploaded once per texture and device."""
+    key = (id(tex), device)
+    if key not in _TEXTURES or _TEXTURES[key][0] is not tex:
+        if len(_TEXTURES) > 32:
+            _TEXTURES.clear()
+        _TEXTURES[key] = (tex, torch.from_numpy(
+            np.ascontiguousarray(tex, np.float32)).to(device))
+    return _TEXTURES[key][1]
+
+
+def render_image(cam: cameras.CameraParams, planes, R_cw, t_cw,
+                 device) -> torch.Tensor:
+    """``render_frame_raycast``'s image as a float32 tensor [H, W] on
+    ``device``: the same rays and bilinear texture reads as ``raycast``,
+    in torch (float64 rays, float32 texture weights), so that long
+    sequences render on the card. Undistorted pinhole cameras only."""
+    if cam.kind != cameras.PINHOLE or any(cam.dist):
+        raise ValueError("render_image takes an undistorted pinhole camera")
+    dev = torch.device(device)
+    f64 = torch.float64
+    H, W = cam.height, cam.width
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=f64, device=dev),
+                            torch.arange(W, dtype=f64, device=dev),
+                            indexing="ij")
+    rays = torch.stack([(uu.reshape(-1) - cam.cx) / cam.fx,
+                        (vv.reshape(-1) - cam.cy) / cam.fy,
+                        torch.ones(H * W, dtype=f64, device=dev)], dim=1)
+    R_wc = np.asarray(R_cw, np.float64).T
+    C_w = -R_wc @ np.asarray(t_cw, np.float64)
+    rays_w = rays @ torch.from_numpy(R_wc.T.copy()).to(dev)
+    Cw = torch.from_numpy(C_w).to(dev)
+    out = torch.full((H * W,), 90.0, dtype=torch.float32, device=dev)
+    depth = torch.full((H * W,), float("inf"), dtype=f64, device=dev)
+    for pl in planes:
+        n = np.cross(pl.e1, pl.e2)
+        nn = torch.from_numpy(n / np.linalg.norm(n)).to(dev)
+        denom = rays_w @ nn
+        num = (torch.from_numpy(np.asarray(pl.origin, np.float64)).to(dev)
+               - Cw) @ nn
+        ok = torch.abs(denom) > 1e-9
+        d = torch.where(ok, num / torch.where(ok, denom,
+                                              torch.ones_like(denom)),
+                        torch.full_like(denom, float("inf")))
+        hit = (d > 0.05) & torch.isfinite(d)
+        Xw = Cw + rays_w * torch.where(hit, d, torch.zeros_like(d))[:, None]
+        G = np.array([[pl.e1 @ pl.e1, pl.e1 @ pl.e2],
+                      [pl.e2 @ pl.e1, pl.e2 @ pl.e2]])
+        P = torch.from_numpy(np.stack([pl.e1, pl.e2], 1).astype(np.float64)
+                             @ np.linalg.inv(G).T).to(dev)
+        ab = (Xw - torch.from_numpy(np.asarray(pl.origin, np.float64)).to(
+            dev)) @ P
+        h, w = pl.texture.shape
+        inside = ((ab[:, 0] >= 0) & (ab[:, 0] < w - 1) & (ab[:, 1] >= 0)
+                  & (ab[:, 1] < h - 1) & hit & (d < depth))
+        a0 = torch.where(inside, ab[:, 0], torch.zeros_like(ab[:, 0]))
+        a1 = torch.where(inside, ab[:, 1], torch.zeros_like(ab[:, 1]))
+        x0, y0 = a0.long(), a1.long()
+        fx = (a0 - x0).to(torch.float32)
+        fy = (a1 - y0).to(torch.float32)
+        tx = _texture_on(pl.texture, dev).reshape(-1)
+        i00 = y0 * w + x0
+        val = (tx[i00] * (1 - fx) * (1 - fy) + tx[i00 + 1] * fx * (1 - fy)
+               + tx[i00 + w] * (1 - fx) * fy + tx[i00 + w + 1] * fx * fy)
+        out = torch.where(inside, val, out)
+        depth = torch.where(inside, d, depth)
+    return out.reshape(H, W)
+
+
+def stereo_right_t(R_cw, t_cw, baseline: float) -> np.ndarray:
+    """t_cw of a rectified pair's right camera: the left one displaced by
+    baseline along its +x (the same R_cw)."""
+    c_r = -R_cw.T @ t_cw + R_cw.T @ np.array([baseline, 0.0, 0.0])
+    return (-R_cw @ c_r).astype(np.float32)
+
+
 def render_stereo_pair(cam: cameras.CameraParams, planes, R_cw, t_cw,
                        baseline: float):
-    """A rectified left/right pair [H, W] float32: the right camera is the
-    left one displaced by baseline along its +x."""
+    """A rectified left/right pair [H, W] float32 (``stereo_right_t``)."""
     left = render_frame_raycast(cam, planes, R_cw, t_cw)[0]
-    c = -R_cw.T @ t_cw
-    c_r = c + R_cw.T @ np.array([baseline, 0.0, 0.0])
-    t_r = (-R_cw @ c_r).astype(np.float32)
-    return left, render_frame_raycast(cam, planes, R_cw, t_r)[0]
+    return left, render_frame_raycast(
+        cam, planes, R_cw, stereo_right_t(R_cw, t_cw, baseline))[0]
 
 
 def camera_depth(R_cw, t_cw, X_w: np.ndarray, hit: np.ndarray) -> np.ndarray:

@@ -176,10 +176,126 @@ def test_failed_cholesky_is_a_rejected_step():
     assert not torch.isfinite(dc).all()
 
 
-def test_more_cameras_than_the_table_tier_raises(problem):
+def _scene_problem(seed, n_cams, C_pad, n_pts, P_pad, n_bad):
+    """A make_scene problem of n_cams cameras padded to C_pad and n_pts
+    points padded to P_pad, n_bad gross outliers, as numpy arrays, a JAX
+    BAProblem and the port's."""
+    rng = np.random.default_rng(seed)
+    sc = make_scene(rng, n_points=n_pts, n_cams=n_cams)
+    ci, pi = np.nonzero(sc["vis"])
+    n = len(ci)
+    uv = sc["uv"][ci, pi].copy()
+    uv[rng.choice(n, n_bad, replace=False)] += rng.normal(0, 30, (n_bad, 2))
+    O_pad = ((n + 511) // 512) * 512
+    pad = O_pad - n
+    f32 = np.float32
+    arr = dict(
+        kf_R=np.concatenate([sc["R"], np.tile(np.eye(3, dtype=f32),
+                                              (C_pad - n_cams, 1, 1))]),
+        kf_t=np.concatenate([sc["t"] + rng.normal(0, 0.02, (n_cams, 3)),
+                             np.zeros((C_pad - n_cams, 3))]).astype(f32),
+        points=np.concatenate([sc["points"]
+                               + rng.normal(0, 0.05, (n_pts, 3)),
+                               np.zeros((P_pad - n_pts, 3))]).astype(f32),
+        obs_cam=np.concatenate([ci, np.zeros(pad, np.int64)]).astype(np.int32),
+        obs_pt=np.concatenate([pi, np.zeros(pad, np.int64)]).astype(np.int32),
+        obs_uv=np.concatenate([uv, np.zeros((pad, 2))]).astype(f32),
+        obs_w=np.concatenate([rng.choice([1.0, 0.69, 0.48], n),
+                              np.zeros(pad)]).astype(f32),
+        obs_valid=np.concatenate([np.ones(n, bool), np.zeros(pad, bool)]),
+        fixed_cam=np.array([True] + [False] * (n_cams - 1)
+                           + [True] * (C_pad - n_cams)),
+        point_valid=np.concatenate([np.ones(n_pts, bool),
+                                    np.zeros(P_pad - n_pts, bool)]))
+    arr["kf_t"][0] = sc["t"][0]
+    jp = jba.BAProblem(**{k: jnp.asarray(v) for k, v in arr.items()})
+    return arr, jp, ba.problem_from_numpy(arr), n
+
+
+def _agree(r_t, r_j, n_obs, n_pts, cost_rel=1e-2, tol=1e-3):
+    """The gates of a whole solve: cost within cost_rel of the reference,
+    >= 99 % of the inlier mask equal, poses and points within tol."""
+    c_t, c_j = float(r_t.cost), float(np.asarray(r_j.cost))
+    assert abs(c_t - c_j) <= cost_rel * c_j, (c_t, c_j)
+    inl_t = np.asarray(r_t.obs_inlier)[:n_obs]
+    inl_j = np.asarray(r_j.obs_inlier)[:n_obs]
+    assert (inl_t == inl_j).mean() >= 0.99
+    for a, b in ((r_t.kf_R, r_j.kf_R), (r_t.kf_t, r_j.kf_t)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol)
+    np.testing.assert_allclose(np.asarray(r_t.points)[:n_pts],
+                               np.asarray(r_j.points)[:n_pts], atol=tol)
+
+
+@pytest.fixture(scope="module")
+def coo_problem():
+    """52 cameras padded to C = 56: above the table tier, below PCG."""
+    return _scene_problem(4, 52, 56, 120, 128, 30)
+
+
+def test_coo_tier_matches_jax(coo_problem):
+    """48 < C <= 128: the port's ba_solve takes the COO tier, held against
+    the JAX package's _ba_solve_coo on the same problem."""
+    arr, jp, tp, n = coo_problem
+    assert ba._TABLE_C_MAX < tp.kf_R.shape[0] <= ba._PCG_C_MIN
+    r_t = ba.ba_solve(tp, CAM, iters=9)
+    r_j = jba._ba_solve_coo(jp, JCAM, 9, reproj.CHI2_MONO, 1e-4)
+    _agree(r_t, r_j, n, 120)
+    assert np.asarray(r_t.obs_inlier)[:n].sum() > 0.9 * n
+    np.testing.assert_allclose(r_t.kf_t.numpy()[0], arr["kf_t"][0],
+                               atol=1e-6)
+
+
+def test_coo_tier_matches_the_table_tier(problem):
+    """One problem that both tiers take (C = 8): the COO tier against the
+    port's table tier (which stops once a step no longer lowers the cost;
+    the COO tier runs every iteration)."""
     _, _, tp, _ = problem
-    big = tp._replace(kf_R=torch.eye(3).repeat(49, 1, 1),
-                      kf_t=torch.zeros(49, 3),
-                      fixed_cam=torch.ones(49, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        ba.ba_solve(big, CAM)
+    r_c = ba._ba_solve_coo(tp, CAM, 9, reproj.CHI2_MONO, 1e-4)
+    r_t = ba.ba_solve(tp, CAM, iters=9, table_depth=DEPTH)
+    _agree(r_c, r_t, 2000, 400)
+
+
+def test_coo_scatter_sums_are_float64_rounded_once():
+    """segment_sum's float32 result is the float64 sum rounded once: the
+    same for any order of the rows."""
+    rng = np.random.default_rng(2)
+    vals = torch.from_numpy(rng.normal(size=(5000, 6)).astype(np.float32)
+                            * 1e3)
+    seg = torch.from_numpy(rng.integers(0, 7, 5000))
+    perm = torch.from_numpy(rng.permutation(5000))
+    a = ba.segment_sum(vals, seg, 7)
+    b = ba.segment_sum(vals[perm], seg[perm], 7)
+    assert a.dtype == torch.float32
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    want = np.zeros((7, 6))
+    np.add.at(want, seg.numpy(), vals.numpy().astype(np.float64))
+    np.testing.assert_array_equal(a.numpy(), want.astype(np.float32))
+
+
+def test_ba_solve_routes_by_camera_count(problem, coo_problem, monkeypatch):
+    """C <= 48: the table tier; 48 < C <= 128: COO; C > 128: Schur-PCG."""
+    from orb_slam3_detailed_comments_tpu_torch.optim import schur_pcg
+    took = []
+    for name, mod in (("_ba_solve_tables", ba), ("_ba_solve_coo", ba),
+                      ("ba_solve_pcg", schur_pcg)):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k:
+                            took.append(_n))
+    ba.ba_solve(problem[2], CAM)
+    ba.ba_solve(coo_problem[2], CAM)
+    big = coo_problem[2]._replace(
+        kf_R=torch.eye(3).repeat(136, 1, 1), kf_t=torch.zeros(136, 3),
+        fixed_cam=torch.ones(136, dtype=torch.bool))
+    ba.ba_solve(big, CAM)
+    ba.ba_solve_fused(big, CAM)
+    assert took == ["_ba_solve_tables", "_ba_solve_coo", "ba_solve_pcg",
+                    "ba_solve_pcg"]
+
+
+def test_pcg_tier_matches_jax():
+    """C > 128 with few points: the port's Schur-PCG against the JAX
+    package's ba_solve_pcg."""
+    from orb_slam3_detailed_comments_tpu.optim import schur_pcg as jpcg
+    arr, jp, tp, n = _scene_problem(5, 132, 136, 48, 64, 20)
+    r_t = ba.ba_solve(tp, CAM, iters=6)
+    r_j = jpcg.ba_solve_pcg(jp, JCAM, iters=6)
+    _agree(r_t, r_j, n, 48, tol=2e-3)

@@ -8,8 +8,9 @@ with the card has no JAX, so run them without the suite's conftest:
 
 Tolerance: exact equality of values and indices, at the shapes of the
 752x480, 1024-feature main path plus constructed ties and gated rows
-(``cell_topk`` and ``gather_patches`` also over tables of 1 and 16 levels,
-``cell_topk`` over 17 levels and at cells 16, 24, 48 and 64,
+(``cell_topk``, ``gather_patches`` and ``dense_frontend`` also over tables
+of 1, 16 and 17 levels, the last in two launches; ``cell_topk`` at cells
+16, 24, 48 and 64,
 with ``chip_smoke.score_maps_case`` and ``chip_smoke.corners_case``), and
 for the best-2 searches also from 1 x 1 to 64 x 5000 with ties planted
 across and within the kernel's lanes (``chip_smoke.tie_case``).
@@ -152,7 +153,7 @@ def test_cell_topk_matrix_rows_equal_cpu(dev, rng, area):
 def test_gather_patches_levels_kernel_equals_plain(dev, rng):
     """The frame's one launch: 1024 37x37 windows from the 8 level images
     at patch_corners' corners, some outside the image; then tables of 1 and
-    16 images; 17 are refused before any launch."""
+    16 images in one launch and of 17 in two, each as one table gives."""
     from orb_slam3_detailed_comments_tpu_torch.ops import brief, layout
     orb, shapes, contents = _main_path_layout()
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -169,10 +170,13 @@ def test_gather_patches_levels_kernel_equals_plain(dev, rng):
         got = patches.gather_patches_levels(im, lv, rc, pw)
         assert native.launches["gather_patches"] == before + 1
         _same(got, patches.gather_patches_levels_plain(im, lv, rc, pw))
+    lv17 = torch.where(torch.arange(level.shape[0], device=dev) % 3 == 0,
+                       torch.full_like(level, 16), alt)
     before = native.launches["gather_patches"]
-    with pytest.raises(ValueError, match="images"):
-        patches.gather_patches_levels(imgs * 2 + imgs[:1], level, rc, pw)
-    assert native.launches["gather_patches"] == before
+    got = patches.gather_patches_levels(imgs * 2 + imgs[:1], lv17, rc, pw)
+    assert native.launches["gather_patches"] == before + 2
+    _same(got, patches.gather_patches_levels_plain(imgs * 2 + imgs[:1], lv17,
+                                                   rc, pw))
 
 
 @pytest.mark.parametrize("ph", [31, 37])
@@ -356,15 +360,24 @@ def test_dense_frontend_levels_kernel_equals_plain(dev, rng):
             assert float((g - r).abs().max()) < 5.0
 
 
-def test_dense_frontend_levels_raises_on_17_levels(dev):
-    lv = [torch.zeros((8, 8), device=dev) for _ in range(17)]
+def test_dense_frontend_levels_takes_17_levels(dev, rng):
+    """17 levels: two launches (16 + 1), each level's maps equal to the
+    plain version (score and blur exactly, moments within 5.0) as one table
+    would give them; levels on different devices still raise."""
+    shapes = [(int(240 / 1.1 ** l), int(320 / 1.1 ** l)) for l in range(17)]
+    lv = [_level_like(rng, s, dev) for s in shapes]
     before = native.launches["dense_frontend"]
-    with pytest.raises(ValueError, match="levels"):
-        frontend.dense_frontend_levels(lv)
     with pytest.raises(ValueError, match="devices"):
         frontend.dense_frontend_levels([lv[0], lv[1].cpu()])
-    assert native.launches["dense_frontend"] == before
-    assert len(frontend.dense_frontend_levels(lv[:16])) == 16
+    out = frontend.dense_frontend_levels(lv)
+    assert native.launches["dense_frontend"] == before + 2
+    assert len(out) == 17
+    for lvl, got in zip(lv, out):
+        ref = frontend.dense_frontend_plain(lvl)
+        _same(got[0], ref[0])
+        _same(got[1], ref[1])
+        for g, r in zip(got[2:], ref[2:]):
+            assert float((g - r).abs().max()) < 5.0
 
 
 def test_dense_frontend_rejects_what_the_kernel_does_not_take(dev):

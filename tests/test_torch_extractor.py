@@ -117,3 +117,45 @@ def test_extract_matches_jax(frames, which):
     desc_j = np.asarray(f_j.desc)[s]
     np.testing.assert_array_equal(desc_t[bins_same], desc_j[bins_same])
     assert bins_same.mean() >= 0.99
+
+
+def _resize_mm(img, nh, nw):
+    """The pyramid's former resize: two interpolation-matrix products,
+    whose two-term row sums the CPU and the card's BLAS round in other
+    orders."""
+    rh = torch.from_numpy(pyramid._resize_matrix(nh, img.shape[0]))
+    rw = torch.from_numpy(pyramid._resize_matrix(nw, img.shape[1]))
+    return (rh @ img) @ rw.T
+
+
+def _exact(x):
+    return x == x.astype(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("shape", [(400, 627), (333, 522), (200, 313),
+                                   (120, 188)],
+                         ids=["480->400", "480->333", "240->200", "2:1"])
+def test_fixed_order_resize_equals_the_matrix_form_where_exact(shape):
+    """``resize_bilinear`` (two taps per output, in a fixed order of
+    separately rounded operations) against the matrix-product form on the
+    CPU: bit-equal wherever the matrix form's two-tap sums are exact (every
+    row sum and column sum exactly representable in float32; all of the
+    dyadic 2:1 downsize), and measured bit-equal on every pixel of these
+    four resizes (the CPU BLAS adds its two taps in the same order)."""
+    rng = np.random.default_rng(31)
+    src = (480, 752) if shape[0] > 300 else (240, 376)
+    img = np.round(rng.uniform(0, 255, src)).astype(np.float32)
+    nh, nw = shape
+    new = pyramid.resize_bilinear(torch.from_numpy(img), nh, nw).numpy()
+    old = _resize_mm(torch.from_numpy(img), nh, nw).numpy()
+    rh = pyramid._resize_matrix(nh, src[0]).astype(np.float64)
+    rw = pyramid._resize_matrix(nw, src[1]).astype(np.float64)
+    rows = rh @ img.astype(np.float64)
+    full = rows.astype(np.float32).astype(np.float64) @ rw.T
+    reads = rw != 0
+    ok = _exact(full) & (~reads[None, :, :] | _exact(rows)[:, None, :]).all(2)
+    if shape == (120, 188):
+        assert ok.all()
+    assert ok.sum() >= 20
+    np.testing.assert_array_equal(new[ok], old[ok])
+    np.testing.assert_array_equal(new, old)

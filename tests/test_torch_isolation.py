@@ -93,10 +93,26 @@ def test_every_kernel_source_is_registered():
 @pytest.mark.parametrize("module", [
     "ops.frontend", "ops.triangulate", "optim.ba", "models.twoview",
     "pipeline.local_mapping", "utils.evaluate_ate", "pipeline.system",
-    "mapping.atlas", "utils.timing"])
+    "mapping.atlas", "utils.timing", "lie.sim3", "placerec.vocab",
+    "placerec.keyframe_db", "placerec.pnp", "placerec.sim3_solver",
+    "optim.pose_graph", "optim.schur_pcg", "pipeline.loop_closing"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert 'orb_slam3_detailed_comments_tpu' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_vocabulary_path_needs_no_jax_import():
+    """The bundled vocabulary is the JAX package's data file, read by path:
+    loading it imports neither JAX nor the JAX package."""
+    code = (f"import sys\n"
+            f"from {PKG}.placerec import vocab\n"
+            "v = vocab.load()\n"
+            "assert v.n_words == 10 ** 6\n"
             "assert 'jax' not in sys.modules\n"
             "assert 'orb_slam3_detailed_comments_tpu' not in sys.modules\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -142,9 +142,11 @@ def test_matrix_entry_equals_levels_on_its_view():
 
 
 def test_levels_entries_raise_past_their_tables():
-    """cell_topk_levels takes any number of levels (the kernel one launch a
-    MAX_LEVELS of them, the rows as from one table); gather_patches_levels
-    still refuses more images than its table holds."""
+    """cell_topk_levels and gather_patches_levels take any number of levels
+    (the kernels one launch a MAX_LEVELS / MAX_IMAGES of them, the rows as
+    from one table): on 17 images the gather equals the JAX package's
+    window rule (``gather_patches_atlas_xla``, lax.dynamic_slice) image by
+    image; an empty table and mismatched contents still raise."""
     maps = [torch.full((32, 32), float(i)) for i in range(topk.MAX_LEVELS + 1)]
     v, i = topk.cell_topk_levels(maps, [(32, 32)] * len(maps), 0, 8)
     assert v.shape == (topk.MAX_LEVELS + 1, 8)
@@ -153,12 +155,26 @@ def test_levels_entries_raise_past_their_tables():
                                  0, 8)[0].shape == (topk.MAX_LEVELS, 8)
     with pytest.raises(ValueError, match="content"):
         topk.cell_topk_levels(maps[:2], [(32, 32)], 0, 8)
-    level = torch.zeros(3, dtype=torch.int32)
-    rc = torch.zeros((3, 2), dtype=torch.int32)
+    rng = np.random.default_rng(23)
+    n = patches.MAX_IMAGES + 1
+    imgs = [rng.uniform(0, 255, (20 + 3 * l, 30 + 2 * l)).astype(np.float32)
+            for l in range(n)]
+    level = rng.integers(0, n, 200).astype(np.int32)
+    level[:n] = np.arange(n)
+    rc = np.stack([rng.integers(-40, 60, 200), rng.integers(-40, 80, 200)],
+                  1).astype(np.int32)
+    got = patches.gather_patches_levels([torch.from_numpy(a) for a in imgs],
+                                        torch.from_numpy(level),
+                                        torch.from_numpy(rc), 5, 7).numpy()
+    assert got.shape == (200, 5, 7)
+    for l in range(n):
+        sel = np.where(level == l)[0]
+        ref = np.asarray(pallas_patches.gather_patches_atlas_xla(
+            jnp.asarray(imgs[l]), jnp.asarray(rc[sel]), 5, 7))
+        np.testing.assert_array_equal(got[sel], ref)
     with pytest.raises(ValueError, match="images"):
-        patches.gather_patches_levels(maps, level, rc, 5)
-    assert patches.gather_patches_levels(maps[1:], level, rc,
-                                         5).shape == (3, 5, 5)
+        patches.gather_patches_levels([], torch.from_numpy(level),
+                                      torch.from_numpy(rc), 5)
 
 
 def _score_maps(img, n_levels):

@@ -2,7 +2,8 @@
 frames, on the CPU at the small size of ``test_torch_bootstrap.py``
 (376x240, 512 features, 32 keyframes / 2048 points, ``min_init_matches``
 50): the orbit of ``tests/test_pipeline_mono.py`` in world seed 3, ts =
-0.05 i, ``System(cam, MONOCULAR, enable_loop_closing=False)``.
+0.05 i, ``System(cam, MONOCULAR)`` at its defaults: loop closing on, with
+the bundled vocabulary (as ``test_mono_end_to_end`` runs it).
 
 Both are held to the gates of ``test_mono_end_to_end`` (> 70 % of the
 frames tracked, >= 3 keyframes, state OK and not lost, > 30 tracked map
@@ -45,8 +46,7 @@ def _jax_system():
     return jsystem.System(
         JCAM, jsystem.MONOCULAR, map_cfg=jms.MapConfig(**MAP_KW),
         tracking_cfg=jtracking.TrackingConfig(n_features=N_FEAT,
-                                              min_init_matches=MIN_INIT),
-        enable_loop_closing=False)
+                                              min_init_matches=MIN_INIT))
 
 
 def _port_system():
@@ -54,7 +54,7 @@ def _port_system():
         CAM, system.MONOCULAR, map_cfg=mapstore.MapConfig(**MAP_KW),
         tracking_cfg=tracking.TrackingConfig(n_features=N_FEAT,
                                              min_init_matches=MIN_INIT),
-        enable_loop_closing=False, device="cpu")
+        device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -117,6 +117,8 @@ def test_both_systems_alike(runs):
     assert ev["kf"] >= 0 and ev["new_points"] > 0 and ev["fused"] > 0
     assert 0 < ev["ba_cams"] <= 48
     assert len(t.map.tombstones) > 0
+    # place recognition ran on every keyframe, in both packages
+    assert t.loop_closer.n_processed > 0 and j.loop_closer.n_processed > 0
 
 
 def _port_from_jax(jslam):

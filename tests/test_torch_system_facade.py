@@ -2,10 +2,12 @@
 ``test_torch_system.py``: the mirrors of ``tests/test_pipeline_mono.py``'s
 ``test_system_facade_api`` (map_changed, reset_active_map and its purged
 frame log, reset, shutdown) and ``test_pipelined_iter_matches_online``
-(track_monocular_iter yields the online poses bit for bit), and the
-configurations it refuses: each raises NotImplementedError naming the
-ROADMAP item that brings it, none is quietly ignored, and without a card
-nothing carries on on the CPU unless asked.
+(track_monocular_iter yields the online poses bit for bit); the System at
+its defaults (loop closing on, the bundled vocabulary, or one given by
+``vocab_path``); and the configurations it refuses: each raises
+NotImplementedError naming the ROADMAP item that brings it, none is
+quietly ignored, and without a card nothing carries on on the CPU unless
+asked.
 """
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 from orb_slam3_detailed_comments_tpu_torch.mapping import atlas, mapstore
 from orb_slam3_detailed_comments_tpu_torch.models import cameras
+from orb_slam3_detailed_comments_tpu_torch.ops import extractor
 from orb_slam3_detailed_comments_tpu_torch.pipeline import system, tracking
 from orb_slam3_detailed_comments_tpu_torch.utils import synth_render
 
@@ -113,8 +116,9 @@ def test_lost_map_is_reset_or_kept(frames):
     (dict(sensor=system.IMU_MONOCULAR), "item 1.6"),
     (dict(sensor=system.IMU_STEREO), "item 1.6"),
     (dict(sensor=system.IMU_RGBD), "item 1.6"),
-    (dict(enable_loop_closing=True), "item 1.5"),
-    (dict(vocab_path="ORBvoc.txt"), "item 1.4"),
+    (dict(sensor=system.IMU_MONOCULAR, enable_loop_closing=True),
+     "item 1.6"),
+    (dict(enable_loop_closing=True, async_mapping=True), "item 1.4"),
     (dict(async_mapping=True), "item 1.4"),
 ])
 def test_unported_configurations_raise(kw, item):
@@ -125,11 +129,54 @@ def test_unported_configurations_raise(kw, item):
         system.System(CAM, sensor, **args)
 
 
-def test_loop_closing_is_on_by_default_and_refused():
-    with pytest.raises(NotImplementedError, match="item 1.5"):
-        system.System(CAM, system.MONOCULAR, device="cpu")
+def test_loop_closing_is_on_by_default_and_refused(frames):
+    """Loop closing is on by default, as in the JAX package, and no longer
+    refused: System(cam, MONOCULAR) constructs and runs, its place
+    recognition built at the first keyframe with the bundled vocabulary;
+    an unknown sensor is still refused."""
+    from orb_slam3_detailed_comments_tpu_torch.placerec import vocab
+    slam = system.System(
+        CAM, system.MONOCULAR,
+        map_cfg=mapstore.MapConfig(max_kf=32, max_pt=2048, n_feat=N_FEAT),
+        tracking_cfg=tracking.TrackingConfig(n_features=N_FEAT,
+                                             min_init_matches=50),
+        device="cpu")
+    assert slam.enable_loop_closing and slam.loop_closer is None
+    poses = [slam.track_monocular(img, i * 0.05)
+             for i, img in enumerate(frames)]
+    assert sum(p is not None for p in poses) >= 8
+    assert slam.loop_closer is not None and slam.kfdb is not None
+    assert slam.vocab is vocab.load()           # the bundled file
+    assert slam.kfdb.valid[slam.map.kf_ids()].all()
+    assert slam.loop_closer.n_processed == slam.n_keyframes
+    assert slam.check_map_consistency() == []
     with pytest.raises(ValueError):
         system.System(CAM, 17, enable_loop_closing=False, device="cpu")
+
+
+def test_vocab_path_is_taken(frames, tmp_path):
+    """A vocabulary file given by path is read at construction (here one
+    trained on the frames' own descriptors, in the JAX package's file
+    format) and used by the keyframe database."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+    from orb_slam3_detailed_comments_tpu_torch.placerec import vocab
+    descs = np.concatenate([
+        kernels.prepare_frame(torch.from_numpy(f), CAM, extractor.OrbConfig(
+            n_features=N_FEAT)).feat.desc.numpy()
+        for f in frames[:3]])
+    path = tmp_path / "voc.npz"
+    vocab.save(vocab.train(descs, k=6, levels=2), str(path))
+    slam = system.System(
+        CAM, system.MONOCULAR,
+        map_cfg=mapstore.MapConfig(max_kf=32, max_pt=2048, n_feat=N_FEAT),
+        tracking_cfg=tracking.TrackingConfig(n_features=N_FEAT,
+                                             min_init_matches=50),
+        vocab_path=str(path), device="cpu")
+    assert slam.vocab.n_words == 36 and slam.kfdb is not None
+    for i, img in enumerate(frames[:6]):
+        slam.track_monocular(img, i * 0.05)
+    assert slam.n_keyframes > 0
+    assert slam.kfdb.valid[slam.map.kf_ids()].all()
 
 
 def test_imu_input_raises(frames):
