@@ -90,12 +90,27 @@ Phases, each of which raises on failure:
      same candidates, the Sim3 within 1e-3); (b) relocalisation after a 6-
      frame blackout (test_relocalization_after_blackout's gates, the host
      clock of one relocalisation); (c) two sequences of world 7 in two
-     maps, merged (test_multimap_spawn_and_merge's gates).
+     maps, merged (test_multimap_spawn_and_merge's gates);
+  9. visual-inertial: the three routes to the inertial optimisers'
+     Jacobians timed (torch.func.jacfwd, forward mode with batched
+     tangents, written out); (a) System(cam, IMU_MONOCULAR) at its defaults
+     on world seed 11's 60 frames of inertial_trajectory
+     (test_mono_inertial_end_to_end's and test_gravity_alignment's gates),
+     (b) System(cam, IMU_STEREO, baseline=0.11) on world seed 13's 45
+     (test_stereo_inertial_end_to_end's gates), (c) System(cam, IMU_RGBD)
+     on 12 frames of 9b's sequence with exact depth maps (tracked, windows
+     preintegrated on the card); each kernel's launches checked; one track_step_inertial_lf and the first IMU initialisation
+     replayed on the CPU and compared; the host clock of each IMU
+     initialisation stage (with its full inertial BA) and local inertial
+     BA; 3 steady inertial frames profiled on a copy of the tracker
+     (chiprun_out/profile_frames_imu_{mono,stereo}.txt).
+  ``--phases 3,9`` runs phases 1, 2 and the named ones only.
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
-"stereo", phase 8's under "phase8"), the card's name
+"stereo", phase 8's under "phase8", phase 9's under "phase9"), the card's
+name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
 there is no CUDA card or the port's package is not beside this script.
@@ -929,7 +944,9 @@ def snapshot(tk):
 
 
 def map_arrays(m):
-    return {**m.to_numpy(), "tombstones": copy.deepcopy(m.tombstones)}
+    return {**m.to_numpy(), "tombstones": copy.deepcopy(m.tombstones),
+            **{f: getattr(m, f) for f in ("imu_initialized", "imu_ba1",
+                                          "imu_ba2")}}
 
 
 def _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev, snap,
@@ -2654,8 +2671,460 @@ def merge_path(dev, cam_kw=MERGE_CAM_KW, n=50, n2=30, gates=MERGE_GATES,
     return rec
 
 
-def main() -> int:
+# ---------------------------------------------------------------- phase 9
+# visual-inertial SLAM at the cases of the JAX package's tests:
+# test_pipeline_mono_inertial.py's test_mono_inertial_end_to_end and
+# test_gravity_alignment (9a, loop closing on: the System's defaults) and
+# test_pipeline_stereo_inertial.py's test_stereo_inertial_end_to_end (9b,
+# loop closing off), frames ray-cast on the card (the JAX tests warp with
+# cv2), IMU windows of utils/synth_render.inertial_trajectory
+IMU_CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752,
+                  height=480)
+IMU_MONO_GATES = dict(tracked=0.7, bg=3e-3, scale=0.12, ate_m=0.06,
+                      ate_poses=0.6, gravity_cos=0.99, replay_match=0.99,
+                      replay_tol=1e-3)
+IMU_STEREO_GATES = dict(tracked=0.8, bg=8e-3, ate_m=0.05, ate_poses=0.7,
+                        replay_match=0.99, replay_tol=1e-3)
+IMU_MONO_BG = np.array([0.003, -0.002, 0.004], np.float32)
+IMU_STEREO_BG = np.array([-0.002, 0.003, 0.001], np.float32)
+
+
+def _tensors_to(x, dev):
+    """x with every tensor inside (tuples, NamedTuples, dicts) on dev."""
     import torch
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_tensors_to(v, dev) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tensors_to(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _tensors_to(v, dev) for k, v in x.items()}
+    return x
+
+
+def _capture(mod, name, keep):
+    """Wrap mod.name so that keep(args, kwargs, result) sees each call;
+    returns the undo."""
+    real = getattr(mod, name)
+
+    def wrapped(*a, **kw):
+        out = real(*a, **kw)
+        keep(a, kw, out)
+        return out
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, real)
+
+
+def inertial_step_replay(call, dev):
+    """One captured track_step_inertial_lf call run again on the card and
+    on the CPU from the same inputs: match_pt agreement, pose and velocity
+    differences."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+    a, kw = call
+    card = kernels.track_step_inertial_lf(*a, **kw)
+    cpu = kernels.track_step_inertial_lf(*_tensors_to(a, torch.device("cpu")),
+                                         **_tensors_to(kw,
+                                                       torch.device("cpu")))
+    mc, mp = card.match_pt.cpu().numpy(), cpu.match_pt.numpy()
+    d = lambda x, y: float(torch.max(torch.abs(x.cpu() - y)))
+    return dict(match_equal=float((mc == mp).mean()),
+                n_matched=int((mc >= 0).sum()),
+                refine_inliers=(int(card.ni), int(cpu.ni)),
+                R=d(card.Ri_cw, cpu.Ri_cw), t=d(card.ti_cw, cpu.ti_cw),
+                v=d(card.v_w, cpu.v_w))
+
+
+def imu_init_replay(snap, args, map_cfg, dev):
+    """The first successful try_initialize_imu once more on the CPU, on a
+    copy of the map as the card's call found it: scale and R_wg."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.lie import so3
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import inertial
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = MapStore.from_numpy(snap, map_cfg, device=device)
+        res = inertial.try_initialize_imu(m, **args)
+        if res is None:
+            raise AssertionError(f"the IMU initialisation replayed on the "
+                                 f"{name} did not take")
+        out[name] = res
+    (R1, s1), (R2, s2) = out["card"], out["cpu"]
+    ang = float(torch.linalg.norm(so3.log(torch.from_numpy(
+        np.asarray(R1).T @ np.asarray(R2)))))
+    return dict(scale_card=float(s1), scale_cpu=float(s2),
+                scale_diff=abs(float(s1) - float(s2)), R_wg_rad=ang)
+
+
+def jacobian_routes(dev, reps=20):
+    """The three routes to the inertial optimisers' Jacobians, timed on the
+    card (host clock of one call, ending in a synchronize; device time from
+    the profiler): torch.func.jacfwd, forward mode with batched tangents
+    (optim/jac.py) and the written-out derivatives (imu/factors.py's
+    inertial_jacobians, pose_opt._visual), on the 9-dof inertial residual
+    over its 24-dim pair state and on 1024 visual rows over 6 dof."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.imu import (
+        factors, preintegration as pre_mod)
+    from orb_slam3_detailed_comments_tpu_torch.lie import so3
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.optim import jac, pose_opt
+    rng = np.random.default_rng(0)
+    cam = cameras.pinhole(**IMU_CAM_KW)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    calib = pre_mod.ImuCalib.default()
+    pre = pre_mod.integrate(f(rng.normal(0, 1, (20, 3)) + [0, 0, 9.81]),
+                            f(rng.normal(0, 0.1, (20, 3))),
+                            f(np.full(20, 0.005)), calib)
+    g = f([0, 0, -9.81])
+    R1 = so3.exp(f(rng.normal(0, 0.1, 3)))
+    p1, v1 = f(rng.normal(0, 1, 3)), f(rng.normal(0, 1, 3))
+    R2 = so3.exp(f(rng.normal(0, 0.1, 3)))
+    p2, v2 = p1 + 0.1 * v1, v1
+    bg, ba = f([0.001, -0.002, 0.003]), f([0.01, 0.0, -0.01])
+
+    def inert(x):
+        return factors.inertial_residual(
+            R1 @ so3.exp(x[..., 0:3]), p1 + x[..., 3:6], v1 + x[..., 6:9],
+            R2 @ so3.exp(x[..., 9:12]), p2 + x[..., 12:15],
+            v2 + x[..., 15:18], bg + x[..., 18:21], ba + x[..., 21:24], pre,
+            g)
+
+    def inert_written():
+        r, Ji, Jj, Jbg, Jba = factors.inertial_jacobians(
+            R1, p1, v1, R2, p2, v2, bg, ba, pre, g)
+        return r, torch.cat([Ji, Jj, Jbg, Jba], -1)
+
+    X = f(np.stack([rng.uniform(-4, 4, 1024), rng.uniform(-3, 3, 1024),
+                    rng.uniform(4, 9, 1024)], 1))
+    uv = cameras.project(cam, X)
+    eye3, z3 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+
+    def vis(x):
+        x_b = (X - (p2 + x[..., 3:6])[..., None, :]) @ (
+            R2 @ so3.exp(x[..., 0:3]))
+        return (cameras.project(cam, x_b) - uv).reshape(
+            *x.shape[:-1], -1)
+
+    # a batch of one: torch.func gives a 0-dim torch.where a float64
+    # tangent, which the float32 products refuse
+    z24 = torch.zeros((1, 24), device=dev)
+    z6 = torch.zeros((1, 6), device=dev)
+    routes = {
+        "inertial_9x24: torch.func.jacfwd":
+            lambda: torch.func.jacfwd(inert)(z24),
+        "inertial_9x24: forward mode, batched tangents":
+            lambda: jac.jacobian_fwd(inert, z24),
+        "inertial_9x24: written out": inert_written,
+        "visual_1024x6: torch.func.jacfwd":
+            lambda: torch.func.jacfwd(vis)(z6),
+        "visual_1024x6: forward mode, batched tangents":
+            lambda: jac.jacobian_fwd(vis, z6),
+        "visual_1024x6: written out":
+            lambda: pose_opt._visual(R2, p2, X, uv, cam, eye3, z3)}
+    ref = routes["inertial_9x24: torch.func.jacfwd"]()[0, :, 0]
+    out = dict(inertial_fwd_diff=float(torch.max(torch.abs(
+        ref - routes["inertial_9x24: forward mode, batched tangents"]()[1][
+            0]))),
+        inertial_written_diff=float(torch.max(torch.abs(
+            ref - inert_written()[1]))))
+    log(f"  Jacobian routes: the inertial 9x24 forward-mode one within "
+        f"{out['inertial_fwd_diff']:.2e} of torch.func.jacfwd, the written-"
+        f"out one within {out['inertial_written_diff']:.2e}")
+    for name, fn in routes.items():
+        out[name] = dict(host_ms=host_ms(fn, reps=reps),
+                         device_ms=device_ms(fn, reps=5, what=name))
+        log(f"  Jacobian route {name}: host clock {out[name]['host_ms']:.3f}"
+            f" ms, device {out[name]['device_ms']:.4f} ms a call")
+    return out
+
+
+def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
+                  world_seed=None, map_cfg=None, track_cfg=None,
+                  gates=None, replay_from=None, profile_from=None,
+                  loop_closing=None):
+    """9a (sensor "mono"): System(cam, IMU_MONOCULAR) at its defaults on
+    world seed 11's 60-frame inertial trajectory; 9b (sensor "stereo"):
+    System(cam, IMU_STEREO, baseline=0.11, enable_loop_closing=False) on
+    world seed 13's 45 frames. Each held to its JAX tests' gates, every
+    kernel's launches checked against the frames and the searches; the
+    first track_step_inertial_lf from replay_from on replayed on the CPU;
+    the first successful IMU initialisation replayed on the CPU from the
+    map it found; the host clock of the IMU initialisation (with its full
+    inertial BA) and of each local inertial BA; on the card 3 steady
+    inertial frames from profile_from on profiled on a copy of the
+    tracker."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        inertial, kernels, loop_closing, system, tracking)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr, timing)
+
+    mono = sensor == "mono"
+    n = n_frames or (60 if mono else 45)
+    seed = world_seed or (11 if mono else 13)
+    gates = gates or (IMU_MONO_GATES if mono else IMU_STEREO_GATES)
+    true_bg = IMU_MONO_BG if mono else IMU_STEREO_BG
+    replay_from = replay_from if replay_from is not None else n // 2
+    profile_from = profile_from if profile_from is not None else n - 6
+    cam = cameras.pinhole(**cam_kw)
+    map_cfg = map_cfg or MapConfig()
+    planes = sr.default_world(np.random.default_rng(seed))
+    traj = sr.inertial_trajectory(n, true_bg=true_bg)
+    t0 = time.perf_counter()
+    left = [render_host(cam, planes, traj["R_cw"][i], traj["t_cw"][i], dev)
+            for i in range(n)]
+    right = [] if mono else [render_host(
+        cam, planes, traj["R_cw"][i],
+        sr.stereo_right_t(traj["R_cw"][i], traj["t_cw"][i], BASELINE), dev)
+        for i in range(n)]
+    log(f"  rendered {n} frames{'' if mono else ' (pairs)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(map_cfg=map_cfg, device=dev)
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    if mono:
+        slam = system.System(cam, system.IMU_MONOCULAR,
+                             enable_loop_closing=(True if loop_closing is None
+                                                  else loop_closing), **kw)
+    else:
+        slam = system.System(cam, system.IMU_STEREO, baseline=BASELINE,
+                             enable_loop_closing=bool(loop_closing), **kw)
+    tk, lm = slam.tracker, slam.local_mapper
+    sync = torch_sync(dev)
+    ts = traj["ts"]
+
+    def feed(who, i):
+        """Frame i to a System or a bare tracker (the same signature)."""
+        if mono:
+            return who.track_monocular(left[i], float(ts[i]),
+                                       traj["windows"][i])
+        return who.track_stereo(left[i], right[i], float(ts[i]),
+                                traj["windows"][i])
+
+    # watched from outside: the fuse searches of each keyframe event, the
+    # first track_step_inertial_lf from replay_from on, the IMU
+    # initialisation's map and host clock, each local inertial BA
+    frame, n_fuse, lf_call, init, lba = [0], [0], {}, {}, []
+    process = lm.process_keyframe
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event.get("fuse_searches", 0)
+
+    def keep_lf(a, kw_, out):
+        if frame[0] >= replay_from and "call" not in lf_call:
+            lf_call["call"] = (a, kw_)
+
+    real_init = inertial.try_initialize_imu
+
+    def watched_init(m, **args):
+        snap = map_arrays(m) if "snap" not in init else None
+        out = real_init(m, **args)
+        if out is not None and snap is not None:
+            init.update(snap=snap, args=args, frame=frame[0])
+        return out
+
+    real_stage = slam._imu_stage
+
+    def timed_stage(*a, **kw_):
+        n0 = len(slam.imu_events)
+        sync()
+        t1 = time.perf_counter()
+        took = real_stage(*a, **kw_)
+        sync()
+        if len(slam.imu_events) > n0:
+            slam.imu_events[-1]["host_ms"] = (time.perf_counter() - t1) * 1e3
+            slam.imu_events[-1]["frame"] = frame[0]
+        return took
+
+    real_lba = inertial.run_local_inertial_ba
+
+    def timed_lba(*a, **kw_):
+        sync()
+        t1 = time.perf_counter()
+        C = real_lba(*a, **kw_)
+        sync()
+        lba.append(dict(frame=frame[0], C=C,
+                        host_ms=(time.perf_counter() - t1) * 1e3))
+        return C
+
+    lm.process_keyframe = counted
+    undo = [_capture(kernels, "track_step_inertial_lf", keep_lf)]
+    inertial.try_initialize_imu = watched_init
+    inertial.run_local_inertial_ba = timed_lba
+    slam._imu_stage = timed_stage
+    poses, times, how, prof_tk = [], [], {}, None
+    reset_counts()                          # this path's run starts here
+    try:
+        for i in range(n):
+            frame[0] = i
+            if i == profile_from and dev.type == "cuda":
+                reloc, tk.relocalizer = tk.relocalizer, None
+                prof_tk = copy.deepcopy(tk)
+                tk.relocalizer = reloc
+            s0 = dict(tk.n_inertial_steps)
+            steps0, dr0 = tk.n_steps, tk.n_dead_reckoned
+            ev0 = len(slam.imu_events) + len(lba)
+            sync()
+            t1 = time.perf_counter()
+            T = feed(slam, i)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+            poses.append(T)
+            how[i] = ("none" if T is None else "dead" if tk.n_dead_reckoned
+                      > dr0 else "lf" if tk.n_inertial_steps["lf"] > s0["lf"]
+                      else "anchor" if tk.n_inertial_steps["anchor"]
+                      > s0["anchor"] else "visual" if tk.n_steps > steps0
+                      else "other")
+            if len(slam.imu_events) + len(lba) > ev0:
+                how[i] += "+imu"
+        launches = dict(native.launches)    # ... and ends here
+    finally:
+        lm.process_keyframe = process
+        for u in undo:
+            u()
+        inertial.try_initialize_imu = real_init
+        inertial.run_local_inertial_ba = real_lba
+        slam.__dict__.pop("_imu_stage", None)
+    name = "9a mono-inertial" if mono else "9b stereo-inertial"
+    log(f"{name}: frames by path {how}")
+    per = 1 if mono else 2
+    S = loop_closing.SEARCHES
+    expect = dict(dense_frontend=per * n, cell_topk=per * n,
+                  gather_patches=(per + (0 if mono else 2)) * n,
+                  hamming_best2=2 * (tk.n_ref_kf_searches + tk.n_vo_searches
+                                     + S["sim3_match"] + S["reloc_match"]),
+                  hamming_best2_windowed=2 * tk.n_steps
+                  + tk.n_local_map_searches + n_fuse[0] + S["projection"]
+                  + S["loop_fuse"] + S["reloc_search"])
+    log(f"{name}: launches {launches} (expected {expect}: {tk.n_steps} "
+        f"fused steps of which {tk.n_inertial_steps} inertial, "
+        f"{tk.n_ref_kf_searches} reference-keyframe and "
+        f"{tk.n_local_map_searches} local-map stages, {n_fuse[0]} fuse "
+        f"searches, place recognition {dict(S)})")
+    if dev.type == "cuda":
+        for k, want in expect.items():
+            if launches[k] != want or (want == 0 and k != "hamming_best2"):
+                raise AssertionError(f"{name}: {k}: {launches[k]} launches, "
+                                     f"expected {want}")
+
+    m = slam.map
+    tracked = sum(p is not None for p in poses)
+    chain = m.temporal_chain()
+    bg = m.kf_bg[chain[-1]] if len(chain) else np.full(3, np.nan)
+    rows = slam.trajectory_tum()
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(ts, traj["centers"], est_ts,
+                                               est, with_scale=mono)
+    rec = dict(tracked=tracked, n_frames=n, keyframes=slam.n_keyframes,
+               points=slam.n_map_points, imu_initialized=m.imu_initialized,
+               bg=bg.tolist(), bg_err=float(np.abs(bg - true_bg).max()),
+               ate_m=rmse, ate_poses=n_ate, scale=scale,
+               consistency=slam.check_map_consistency(),
+               imu_events=slam.imu_events, local_inertial_ba=lba,
+               inertial_steps=dict(tk.n_inertial_steps),
+               loops_closed=(slam.loop_closer.n_loops_closed
+                             if slam.loop_closer is not None else 0),
+               launches=launches, how=how)
+    if mono:
+        pairs = evaluate_ate.associate(est_ts, ts)
+        _, Rh, _, _ = evaluate_ate.align_horn(est[pairs[:, 0]],
+                                              traj["centers"][pairs[:, 1]])
+        g_true = traj["gravity"] / np.linalg.norm(traj["gravity"])
+        rec["gravity_cos"] = float((Rh @ np.array([0.0, 0.0, -1.0]))
+                                   @ g_true)
+    steady = [times[i] for i in range(n) if how[i] in ("lf", "anchor")]
+    rec.update(frame_ms_median=float(np.median(steady)) if steady else None,
+               frame_ms_p90=float(np.percentile(steady, 90))
+               if steady else None, n_steady=len(steady))
+    log(f"{name}: {tracked}/{n} frames tracked, {slam.n_keyframes} "
+        f"keyframes, {slam.n_map_points} points, IMU initialised "
+        f"{m.imu_initialized}; bg {np.round(bg, 5).tolist()} (true "
+        f"{true_bg.tolist()}, error {rec['bg_err']:.5f}); "
+        f"{'scale-aligned' if mono else 'metric'} ATE {rmse:.5f} m over "
+        f"{n_ate} poses, scale {scale:.4f}"
+        + (f", gravity cos {rec['gravity_cos']:.5f}" if mono else "")
+        + f"; {rec['loops_closed']} loops; consistency {rec['consistency']}")
+    log(f"{name}: steady inertial frames (host clock, image upload to "
+        f"pose): median {rec['frame_ms_median']} ms, p90 "
+        f"{rec['frame_ms_p90']} ms over {len(steady)}; IMU stages "
+        f"{slam.imu_events}; local inertial BAs {lba}")
+    fails = [k for k, bad in (
+        ("frames tracked", tracked <= gates["tracked"] * n),
+        ("IMU initialised", not m.imu_initialized),
+        ("gyro bias", not rec["bg_err"] < gates["bg"]),
+        ("scale", "scale" in gates and not abs(scale - 1) < gates["scale"]),
+        ("ATE", not (n_ate > gates["ate_poses"] * n
+                     and rmse < gates["ate_m"])),
+        ("gravity", "gravity_cos" in gates
+         and not rec["gravity_cos"] > gates["gravity_cos"])) if bad]
+    if fails:
+        raise AssertionError(f"{name} missed its gates: {fails}: "
+                             f"{ {k: v for k, v in rec.items() if k not in ('how', 'launches')} }")
+
+    # card against CPU: one track_step_inertial_lf frame, the first IMU
+    # initialisation
+    if "call" not in lf_call:
+        raise AssertionError(f"{name}: no track_step_inertial_lf from frame "
+                             f"{replay_from} on")
+    if "snap" not in init:
+        raise AssertionError(f"{name}: no IMU initialisation to replay")
+    rec["step_replay"] = inertial_step_replay(lf_call["call"], dev)
+    rec["init_replay"] = dict(imu_init_replay(init["snap"], init["args"],
+                                              map_cfg, dev),
+                              frame=init["frame"])
+    log(f"{name}: track_step_inertial_lf card against CPU: "
+        f"{rec['step_replay']}; first IMU initialisation (frame "
+        f"{init['frame']}) card against CPU: {rec['init_replay']}")
+    sr_, ir = rec["step_replay"], rec["init_replay"]
+    tol = gates["replay_tol"]
+    if not (sr_["match_equal"] >= gates["replay_match"] and sr_["R"] < tol
+            and sr_["t"] < tol and sr_["v"] < tol
+            and ir["scale_diff"] < tol and ir["R_wg_rad"] < tol):
+        raise AssertionError(f"{name}: card and CPU part: {sr_}, {ir}")
+
+    if dev.type == "cuda":
+        fixed_key = prof_tk._imu_prior_key
+
+        def make():
+            tk2 = copy.deepcopy(prof_tk)
+            if fixed_key is not None:
+                tk2._imu_prior_key = (id(tk2.map),) + tuple(fixed_key[1:])
+            return tk2
+
+        rec["profile"] = profile_frames(
+            make, None, [profile_from + j for j in range(3)],
+            table=f"profile_frames_imu_{sensor}.txt", alone=False,
+            track=feed)
+        if steady:
+            rec["profile"]["busy_share"] = (rec["profile"]["device_ms"]
+                                            / rec["frame_ms_median"])
+            log(f"{name}: device busy share of a steady inertial frame: "
+                f"{rec['profile']['busy_share']:.3f}")
+    return rec
+
+
+def main(argv=None) -> int:
+    """argv: optionally ``--phases 3,9`` to run only those of phases 3-9
+    (phases 1 and 2 always run; the last lines then carry what ran)."""
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
+    phases = None
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        phases = {p.strip() for p in argv[1].split(",")}
+    elif argv:
+        print("usage: chip_smoke.py [--phases 3,4,...,9]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2672,13 +3141,14 @@ def main() -> int:
     with open(REPO / "chiprun_out" / "chip_smoke_log.txt", "w") as copy:
         LOG_COPY.append(copy)
         try:
-            return run(torch.device("cuda"))
+            return run(torch.device("cuda"), phases)
         finally:
             LOG_COPY.remove(copy)
 
 
-def run(dev) -> int:
-    """Phases 1-8 on the card dev; raises on the first failure."""
+def run(dev, phases=None) -> int:
+    """Phases 1-9 on the card dev (or 1, 2 and those named in phases);
+    raises on the first failure."""
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2703,8 +3173,10 @@ def run(dev) -> int:
         t_phase.append(time.perf_counter())
         log(f"{name} took {t_phase[-1] - t_phase[-2]:.1f} s")
 
-    log("phase 3 kernels against their plain versions")
     rates = int_rates()
+    if phases is not None:
+        return run_some(dev, phases, rates, card)
+    log("phase 3 kernels against their plain versions")
     log(f"  bounds: HBM {HBM_BYTES_PER_S:.3e} B/s, float32 "
         f"{CUDA_CORE_OPS_PER_S:.3e} op/s; {rates['sms']} SMs at "
         f"{rates['sm_clock_hz'] / 1e6:.0f} MHz: int32 "
@@ -2736,10 +3208,14 @@ def run(dev) -> int:
     log("phase 8c two sequences, two maps, one merge")
     merge = merge_path(dev)
     phase_done("phase 8c")
+    imu = inertial_phase(dev)
+    phase_done("phase 9")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
-             ("relocalisation", reloc), ("merge", merge))
+             ("relocalisation", reloc), ("merge", merge),
+             ("imu_mono", imu["mono"]), ("imu_stereo", imu["stereo"]),
+             ("imu_rgbd", imu["rgbd"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -2774,15 +3250,108 @@ def run(dev) -> int:
     phase8 = {name: {k: v for k, v in run.items() if k != "launches"}
               for name, run in (("loop", loop), ("relocalisation", reloc),
                                 ("merge", merge))}
+    phase9 = {name: {k: v for k, v in run.items()
+                     if k not in ("launches", "how")}
+              for name, run in imu.items()
+              if name in ("mono", "stereo", "rgbd")}
+    phase9["jacobian_routes"] = imu["jacobian_routes"]
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rec],
                     "frame": summary, "bootstrap": boot_summary,
                     "system": sys_summary, "stereo": st_summary,
-                    "phase8": phase8,
+                    "phase8": phase8, "phase9": phase9,
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
                     "event_time_in_place_of_device_time": EVENT_FALLBACKS}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def inertial_phase(dev) -> dict:
+    """Phase 9: the Jacobian routes, then 9a, 9b and 9c."""
+    log("phase 9 visual-inertial: the Jacobian routes, then 9a "
+        "IMU_MONOCULAR at its defaults, 9b IMU_STEREO and 9c IMU_RGBD")
+    out = dict(jacobian_routes=jacobian_routes(dev))
+    out["mono"] = inertial_path(dev, "mono")
+    out["stereo"] = inertial_path(dev, "stereo")
+    out["rgbd"] = inertial_rgbd(dev)
+    return out
+
+
+def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
+    """9c: System(cam, IMU_RGBD, baseline=0.11) on the card takes IMU
+    windows: the first n frames of 9b's sequence with their exact depth
+    maps (numpy ray cast); every frame tracked from the depth map's
+    initialisation on frame 0, each window preintegrated on the card, the
+    launches those of n RGB-D frames. No JAX test has this case: no
+    accuracy gate beyond the poses."""
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(13))
+    traj = sr.inertial_trajectory(n, true_bg=IMU_STEREO_BG)
+    frames = []
+    for i in range(n):
+        img, X, hit = sr.render_frame_raycast(cam, planes, traj["R_cw"][i],
+                                              traj["t_cw"][i])
+        frames.append((img, sr.camera_depth(traj["R_cw"][i],
+                                            traj["t_cw"][i], X, hit)))
+    slam = system.System(cam, system.IMU_RGBD, baseline=BASELINE,
+                         enable_loop_closing=False, device=dev)
+    lm, n_fuse = slam.local_mapper, [0]
+    process = lm.process_keyframe
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event["fuse_searches"]
+
+    lm.process_keyframe = counted
+    reset_counts()                          # this path's run starts here
+    poses = [slam.track_rgbd(img, depth, float(traj["ts"][i]),
+                             imu=traj["windows"][i])
+             for i, (img, depth) in enumerate(frames)]
+    launches = dict(native.launches)        # ... and ends here
+    lm.process_keyframe = process
+    tk = slam.tracker
+    pre = tk.imu.pre_last_frame
+    rec = dict(tracked=sum(p is not None for p in poses), n_frames=n,
+               keyframes=slam.n_keyframes, launches=launches,
+               window_dT=float(pre.dT) if pre is not None else None,
+               window_device=str(pre.dT.device) if pre is not None else None)
+    log(f"9c IMU_RGBD: {rec['tracked']}/{n} frames tracked, "
+        f"{slam.n_keyframes} keyframes, the last window {rec['window_dT']} s "
+        f"on {rec['window_device']}; launches {launches}")
+    want = dict(dense_frontend=n, cell_topk=n, gather_patches=n,
+                hamming_best2=2 * tk.n_ref_kf_searches,
+                hamming_best2_windowed=2 * tk.n_steps
+                + tk.n_local_map_searches + n_fuse[0])
+    if rec["tracked"] != n or pre is None or pre.dT.device.type != dev.type:
+        raise AssertionError(f"9c IMU_RGBD: {rec}")
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"9c IMU_RGBD: launches {launches}, expected "
+                             f"{want}")
+    return rec
+
+
+def run_some(dev, phases, rates, card) -> int:
+    """Only the phases named (3 and 9 take no other phase's results): the
+    launches of the paths that ran, and the last lines as in a whole run."""
+    import torch
+    out = {}
+    if "3" in phases:
+        log("phase 3 kernels against their plain versions")
+        out["kernels"] = kernel_phase(dev, rates)
+    if "9" in phases:
+        out["phase9"] = inertial_phase(dev)
+    log(json.dumps({k: (v if k != "phase9" else {
+        n: {kk: vv for kk, vv in r.items() if kk != "how"}
+        for n, r in v.items()}) for k, v in out.items()}, default=str))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

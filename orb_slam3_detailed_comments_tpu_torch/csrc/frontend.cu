@@ -198,7 +198,8 @@ dense_frontend_kernel(const __grid_constant__ Table T) {
   __syncthreads();
 
   // separable blur, taps added in index order: the horizontal pass over the
-  // tile's rows and three rows either side, shared by the vertical pass
+  // tile's rows and three rows either side (each product and sum rounded),
+  // shared by the vertical pass (each tap a fused multiply-add)
   for (int e = tid; e < HB_ROWS * TILE; e += THREADS) {
     const int hr = e / TILE, ox = e - hr * TILE;
     const float* row = tile + (hr + HALO - 3) * SPITCH + ox + HALO - 3;
@@ -215,8 +216,7 @@ dense_frontend_kernel(const __grid_constant__ Table T) {
     const float* col = scratch + oy * TILE + ox;
     float v = __fmul_rn(k[0], col[0]);
 #pragma unroll
-    for (int i = 1; i < 7; ++i)
-      v = __fadd_rn(v, __fmul_rn(k[i], col[i * TILE]));
+    for (int i = 1; i < 7; ++i) v = __fmaf_rn(k[i], col[i * TILE], v);
     blur[static_cast<size_t>(gy) * W + gx] = rintf(v);
   }
 

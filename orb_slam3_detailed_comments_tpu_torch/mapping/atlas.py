@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import device as device_mod
-from .mapstore import NO_POINT, MapConfig, MapStore
+from .mapstore import NO_POINT, PRE_FIELDS, MapConfig, MapStore
 
 
 class Atlas:
@@ -128,8 +128,18 @@ class Atlas:
             if (other_id, s2, e2) in self.kf_redirect:
                 self.kf_redirect[(other_id, slot, epoch)] = (
                     other_id, s2, e2, R_rel, t_rel)
-        # the temporal chain, remapped within the welded set
+        # the per-keyframe inertial state rides through the weld: a world
+        # velocity maps as v_a = s R v_o; biases and windows are body-frame
+        # (reference: MergeLocal2, LoopClosing.cc:2310+); the temporal
+        # chain is remapped within the welded set (the gap between the two
+        # maps has no window)
         for j, k_new in slot_map.items():
+            act.kf_vel[k_new] = s_s * oth.kf_vel[j] @ R_s.T
+            act.kf_bg[k_new] = oth.kf_bg[j]
+            act.kf_ba[k_new] = oth.kf_ba[j]
+            for f in PRE_FIELDS:
+                getattr(act, "kf_pre_" + f)[k_new] = getattr(
+                    oth, "kf_pre_" + f)[j]
             p = int(oth.kf_prev[j])
             if p >= 0 and p in slot_map:
                 act.kf_prev[k_new] = slot_map[p]

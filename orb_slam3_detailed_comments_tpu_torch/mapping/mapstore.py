@@ -6,9 +6,16 @@ tracking, map initialisation, bundle adjustment and the local mapper use
 culling with tombstones, point fusion, covisibility.
 Host bookkeeping runs on numpy arrays; ``device_points`` and
 ``device_kf_obs`` return tensors on the map's device, cached per
-``version`` (a full upload when the version changed). Inertial fields and
-the native host library wait for later slices: every derived structure
-here is computed by the numpy paths.
+``version`` (a full upload when the version changed). The native host
+library waits for a later slice: every derived structure here is computed
+by the numpy paths.
+
+The inertial block (reference: KeyFrame's mVw / mImuBias /
+mpImuPreintegrated and the mPrevKF chain, include/KeyFrame.h): each
+keyframe's velocity and biases, the preintegrated window from its
+temporal predecessor ``kf_prev`` (``kf_pre_*``, with the biases it was
+integrated at), and the map's flags ``imu_initialized``, ``imu_ba1``,
+``imu_ba2``. Culling a keyframe merges its window into its successor's.
 
 Descriptor arrays (``kf_feat_desc``, ``pt_desc``) hold the 256 bits as int32
 words; ``from_numpy`` / ``to_numpy`` convert the JAX package's uint32
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..imu import preintegration as pre_mod
 
 NO_POINT = -1
 
@@ -76,7 +84,24 @@ _PT_ARRAYS = {
     "pt_found": ((), np.int32), "pt_visible": ((), np.int32),
     "pt_replaced_by": ((), np.int32),
 }
+# the inertial block, per keyframe
+_KF_IMU_ARRAYS = {
+    "kf_vel": ((3,), np.float32), "kf_bg": ((3,), np.float32),
+    "kf_ba": ((3,), np.float32), "kf_pre_dT": ((), np.float32),
+    "kf_pre_dR": ((3, 3), np.float32), "kf_pre_dV": ((3,), np.float32),
+    "kf_pre_dP": ((3,), np.float32), "kf_pre_C": ((15, 15), np.float32),
+    "kf_pre_JRg": ((3, 3), np.float32), "kf_pre_JVg": ((3, 3), np.float32),
+    "kf_pre_JVa": ((3, 3), np.float32), "kf_pre_JPg": ((3, 3), np.float32),
+    "kf_pre_JPa": ((3, 3), np.float32), "kf_pre_bg0": ((3,), np.float32),
+    "kf_pre_ba0": ((3,), np.float32),
+}
+# Preintegrated's fields, in order, and the arrays that hold them
+PRE_FIELDS = ("dT", "dR", "dV", "dP", "C", "JRg", "JVg", "JVa", "JPg",
+              "JPa", "bg0", "ba0")
+_IMU_FLAGS = ("imu_initialized", "imu_ba1", "imu_ba2")
 _DESC_ARRAYS = ("kf_feat_desc", "pt_desc")
+_ALL_ARRAYS = (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_KF_IMU_ARRAYS,
+               *_PT_ARRAYS)
 
 
 class MapStore:
@@ -103,6 +128,12 @@ class MapStore:
         self.kf_feat_desc = np.zeros((K, N, 8), np.int32)
         self.kf_feat_valid = np.zeros((K, N), bool)
         self.kf_feat_point = np.full((K, N), NO_POINT, np.int32)
+        for name, (shape, dtype) in _KF_IMU_ARRAYS.items():
+            setattr(self, name, np.zeros((K, *shape), dtype))
+        self.kf_pre_dR[:] = np.eye(3, dtype=np.float32)
+        self.imu_initialized = False
+        self.imu_ba1 = False
+        self.imu_ba2 = False
         self.pt_xyz = np.zeros((P, 3), np.float32)
         self.pt_valid = np.zeros(P, bool)
         self.pt_desc = np.zeros((P, 8), np.int32)
@@ -135,7 +166,7 @@ class MapStore:
         ignored; uint32 descriptor words become int32 with the same bits.
         ``tombstones`` and ``big_change_idx`` are taken too where given."""
         m = cls(cfg, device)
-        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+        for name in _ALL_ARRAYS:
             if name not in arrays:
                 continue
             a = np.asarray(arrays[name])
@@ -149,14 +180,19 @@ class MapStore:
         m.tombstones = {key: (s, e, np.array(R), np.array(t)) for key, (
             s, e, R, t) in arrays.get("tombstones", {}).items()}
         m.big_change_idx = int(arrays.get("big_change_idx", 0))
+        for flag in _IMU_FLAGS:
+            setattr(m, flag, bool(arrays.get(flag, False)))
         m.version = int(arrays.get("version", 0)) + 1
         return m
 
     def to_numpy(self) -> dict:
         """SoA arrays by attribute name, descriptors as uint32 words (the
-        JAX package's types): ``setattr`` them onto a JAX ``MapStore``."""
+        JAX package's types): ``setattr`` them onto a JAX ``MapStore``. The
+        IMU flags (``imu_initialized``, ``imu_ba1``, ``imu_ba2``) are plain
+        attributes of both stores, not arrays: ``from_numpy`` takes them
+        where given."""
         out = {}
-        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+        for name in _ALL_ARRAYS:
             a = getattr(self, name).copy()
             out[name] = a.view(np.uint32) if name in _DESC_ARRAYS else a
         return out
@@ -186,7 +222,7 @@ class MapStore:
             max_kf=self.cfg.max_kf * 2 if grow_kf else self.cfg.max_kf,
             max_pt=self.cfg.max_pt * 2 if grow_pt else self.cfg.max_pt)
         fresh = MapStore(cfg2, self.device)
-        for name in (*_KF_ARRAYS, *_KF_FEAT_ARRAYS, *_PT_ARRAYS):
+        for name in _ALL_ARRAYS:
             arr, new = getattr(self, name), getattr(fresh, name)
             new[:len(arr)] = arr
             setattr(self, name, new)
@@ -384,10 +420,7 @@ class MapStore:
             t_rel = self.kf_t[k] - R_rel @ self.kf_t[s]
             self.tombstones[(k, int(self.kf_epoch[k]))] = (
                 s, int(self.kf_epoch[s]), R_rel.copy(), t_rel.copy())
-        # keep the temporal chain connected across the cull (the visual
-        # branch of the JAX package's _merge_preintegration_chain)
-        for n in np.where(self.kf_prev == k)[0]:
-            self.kf_prev[n] = int(self.kf_prev[k])
+        self._merge_preintegration_chain(k)
         owned = self.kf_feat_point[k]
         owned = np.unique(owned[owned >= 0])
         self.kf_valid[k] = False
@@ -411,6 +444,47 @@ class MapStore:
                 re = np.isin(targets, refd) & has
                 self.pt_ref_kf[targets[re]] = ks[safe[re]]
         self.version += 1
+
+    def _merge_preintegration_chain(self, k: int):
+        """Keep the temporal chain connected across a cull: k's window is
+        merged into its successor's (reference: Preintegrated::MergePrevious
+        on KeyFrame culling, LocalMapping.cc:1230-1250, ImuTypes.cc:330).
+        The merge runs on the map's device."""
+        nxt = np.where(self.kf_prev == k)[0]
+        if len(nxt) == 0 or self.kf_pre_dT[k] <= 0:
+            # nothing downstream, or k had no window: just relink
+            for n in nxt:
+                self.kf_prev[n] = int(self.kf_prev[k])
+            return
+        n = int(nxt[0])
+        if self.kf_pre_dT[n] > 0:
+            both = self.get_kf_preintegration([k, n])
+            merged = pre_mod.merge(pre_mod.index(both, 0),
+                                   pre_mod.index(both, 1))
+            self.set_kf_preintegration(n, merged, int(self.kf_prev[k]))
+        else:
+            self.kf_prev[n] = int(self.kf_prev[k])
+
+    def set_kf_preintegration(self, k: int, pre, prev_kf: int):
+        """Store a window (Preintegrated of tensors) from prev_kf to k, in
+        one packed fetch."""
+        self.kf_prev[k] = prev_kf
+        for f, a in zip(PRE_FIELDS, device_mod.fetch_packed(
+                [x.to(torch.float32) for x in pre])):
+            getattr(self, "kf_pre_" + f)[k] = a
+
+    def get_kf_preintegration(self, ks):
+        """Stacked windows of keyframes ks ([len(ks)] leading) on the map's
+        device, in one packed upload."""
+        ks = np.asarray(ks, np.int64)
+        return pre_mod.Preintegrated(*device_mod.upload_packed(
+            [getattr(self, "kf_pre_" + f)[ks] for f in PRE_FIELDS],
+            self.device))
+
+    def temporal_chain(self) -> np.ndarray:
+        """Live keyframes in time order (the prev-link chain's order)."""
+        ids = self.kf_ids()
+        return ids[np.argsort(self.kf_ts[ids])]
 
     def resolve_kf_pose(self, slot: int, epoch: int):
         """World->camera pose (R, t) of a keyframe incarnation, culled or

@@ -7,7 +7,9 @@ Counterpart of ``ops/pallas_frontend.py`` of the JAX package. A level image
   non-maximum suppression (a pixel keeps its score if it is >= its eight
   neighbours, else 0);
 * ``blur``: separable 7-tap sigma=2 Gaussian, horizontal then vertical, taps
-  added in index order, rounded half to even;
+  added in index order; the horizontal pass rounds each product and each
+  sum, the vertical pass adds each tap as a fused multiply-add; rounded
+  half to even;
 * ``m10``, ``m01``: intensity-centroid moments of the circular patch of
   radius 15 (rows dv in [-15, 15] with half-widths ``_U_MAX[|dv|]``).
 
@@ -76,9 +78,13 @@ def _blur_plain(img: torch.Tensor) -> torch.Tensor:
     h = k[0] * xp[:, 0:W]
     for i in range(1, 7):
         h = h + k[i] * xp[:, i:i + W]
+    # the vertical pass as fused multiply-adds, out = fma(k[i], h, out):
+    # the product of two float32 values is exact in float64, and the sum
+    # is rounded once to float32 (the rounding of the JAX kernel on the
+    # CPU, and of __fmaf_rn on the card)
     out = k[0] * h[0:H]
     for i in range(1, 7):
-        out = out + k[i] * h[i:i + H]
+        out = (k[i] * h[i:i + H].double() + out.double()).float()
     return torch.round(out)
 
 

@@ -1,13 +1,16 @@
 """The device programs of visual tracking and mapping.
 
-Counterpart of ``pipeline/kernels.py`` of the JAX package (visual programs
-only): ``prepare_frame`` (ORB extraction + undistortion), its stereo and
+Counterpart of ``pipeline/kernels.py`` of the JAX package:
+``prepare_frame`` (ORB extraction + undistortion), its stereo and
 RGB-D forms ``prepare_frame_stereo`` (rectified pair),
 ``prepare_frame_stereo_fisheye`` (two cameras and their extrinsic) and
 ``prepare_frame_rgbd`` (registered depth map),
 ``track_step_visual`` (motion-model projection search + pose GN, local-
 keyframe selection on point bitsets, local-map projection search + pose
-GN) and ``search_and_triangulate`` (new points from a keyframe pair).
+GN), its inertial forms ``track_step_inertial_anchor`` /
+``track_step_inertial_lf`` (the same visual core, then the visual-inertial
+refine of the frame's nav state) and ``search_and_triangulate`` (new
+points from a keyframe pair).
 PyTorch runs them eagerly; apart from the host-side id lists they read and
 the one packed fetch their caller makes, they run on the tensors' device
 without a host sync.
@@ -334,6 +337,106 @@ def track_step_visual(T_pred: SE3, frame: PreparedFrame, ids1, ang1,
     return TrackStepResult(res1.n_inliers, ref_kf, res2.match_pt,
                            res2.T_cw_R, res2.T_cw_t, ids2, proj2.visible,
                            frame.feat.angle, frame.feat.valid)
+
+
+class TrackStepInertialResult(NamedTuple):
+    """track_step_visual's outputs and the visual-inertial refine appended
+    (reference: the PoseInertialOptimization call at the end of
+    TrackLocalMap, Tracking.cc:3502-3528). ``prior`` (the next frame's
+    marginalisation prior) stays on the device."""
+    n1: torch.Tensor
+    ref_kf: torch.Tensor
+    match_pt: torch.Tensor
+    T_cw_R: torch.Tensor
+    T_cw_t: torch.Tensor
+    ids2: torch.Tensor
+    visible2: torch.Tensor
+    angle: torch.Tensor
+    valid: torch.Tensor
+    ni: torch.Tensor          # refine inlier count
+    inl_i: torch.Tensor       # [N] refine inlier mask over the features
+    v_w: torch.Tensor         # [3] refined world velocity
+    Ri_cw: torch.Tensor
+    ti_cw: torch.Tensor
+    prior: object             # pose_opt.PriorPoseImu
+
+
+def _refine_inputs(frame: PreparedFrame, res2: TrackResult, pt_xyz,
+                   inv_sigma2_per_level):
+    """The refine's start pose, matched points, weights and mask."""
+    has = res2.match_pt >= 0
+    X = pt_xyz[torch.where(has, res2.match_pt,
+                           torch.zeros_like(res2.match_pt)).long()]
+    w = inv_sigma2_per_level[frame.feat.level.long()]
+    return SE3(res2.T_cw_R, res2.T_cw_t), X, w, has & frame.feat.valid
+
+
+def _inertial_result(res1, ref_kf, ids2, proj2, res2, frame, ri, prior):
+    return TrackStepInertialResult(
+        res1.n_inliers, ref_kf, res2.match_pt, res2.T_cw_R, res2.T_cw_t,
+        ids2, proj2.visible, frame.feat.angle, frame.feat.valid,
+        ri.n_inliers, ri.inlier, ri.v_w, ri.T_cw.R, ri.T_cw.t, prior)
+
+
+def track_step_inertial_anchor(T_pred: SE3, frame: PreparedFrame, ids1, ang1,
+                               pt_xyz, pt_desc, pt_normal, pt_min_dist,
+                               pt_max_dist, pt_valid, kf_feat_point, kf_valid,
+                               covis, kf_point_bits, radius1_per_level,
+                               radius2_per_level, inv_sigma2_per_level,
+                               v0, R_wb_a, p_a, v_a, bg, ba, pre, gravity,
+                               R_cb, t_cb, cam: cameras.CameraParams,
+                               scale: float = 1.2, n_levels: int = 8,
+                               min_covis_w: int = 15, local_cap: int = 4096,
+                               pt_proj8=None) -> TrackStepInertialResult:
+    """The steady step for inertial sensors anchored on the last KEYFRAME
+    (the map changed since the last frame, so the running prior is stale;
+    reference: the mbMapUpdated branch of Tracking.cc:3502-3528): the
+    visual core, then ``pose_inertial_optimization`` and the prior's seed
+    (``build_frame_prior``)."""
+    res1, ref_kf, ids2, proj2, res2 = _track_step_visual_core(
+        T_pred, frame, ids1, ang1, pt_xyz, pt_desc, pt_normal, pt_min_dist,
+        pt_max_dist, pt_valid, kf_feat_point, kf_valid, covis, kf_point_bits,
+        radius1_per_level, radius2_per_level, inv_sigma2_per_level, cam,
+        scale, n_levels, min_covis_w, local_cap, pt_proj8=pt_proj8)
+    T2, X, w, vmask = _refine_inputs(frame, res2, pt_xyz,
+                                     inv_sigma2_per_level)
+    ri = pose_opt.pose_inertial_optimization(
+        T2, v0, R_wb_a, p_a, v_a, bg, ba, pre, X, frame.xy_ud, w, vmask,
+        cam, gravity, R_cb=R_cb, t_cb=t_cb)
+    prior = pose_opt.build_frame_prior(
+        ri.T_cw, ri.v_w, bg, ba, R_wb_a, p_a, v_a, pre, X, frame.xy_ud, w,
+        ri.inlier, cam, gravity, R_cb=R_cb, t_cb=t_cb)
+    return _inertial_result(res1, ref_kf, ids2, proj2, res2, frame, ri,
+                            prior)
+
+
+def track_step_inertial_lf(T_pred: SE3, frame: PreparedFrame, ids1, ang1,
+                           pt_xyz, pt_desc, pt_normal, pt_min_dist,
+                           pt_max_dist, pt_valid, kf_feat_point, kf_valid,
+                           covis, kf_point_bits, radius1_per_level,
+                           radius2_per_level, inv_sigma2_per_level,
+                           v0, prior_in, pre, gravity, R_cb, t_cb,
+                           cam: cameras.CameraParams, scale: float = 1.2,
+                           n_levels: int = 8, min_covis_w: int = 15,
+                           local_cap: int = 4096,
+                           pt_proj8=None) -> TrackStepInertialResult:
+    """The steady step for inertial sensors, last-FRAME form: the visual
+    core, then the joint 30-dof optimisation with the last frame's state
+    under the running prior, marginalising it into the next prior
+    (reference: PoseInertialOptimizationLastFrame + Marginalize,
+    Optimizer.cc:983 / 1644)."""
+    res1, ref_kf, ids2, proj2, res2 = _track_step_visual_core(
+        T_pred, frame, ids1, ang1, pt_xyz, pt_desc, pt_normal, pt_min_dist,
+        pt_max_dist, pt_valid, kf_feat_point, kf_valid, covis, kf_point_bits,
+        radius1_per_level, radius2_per_level, inv_sigma2_per_level, cam,
+        scale, n_levels, min_covis_w, local_cap, pt_proj8=pt_proj8)
+    T2, X, w, vmask = _refine_inputs(frame, res2, pt_xyz,
+                                     inv_sigma2_per_level)
+    ri = pose_opt.pose_inertial_optimization_last_frame(
+        T2, v0, prior_in, pre, X, frame.xy_ud, w, vmask, cam, gravity,
+        R_cb=R_cb, t_cb=t_cb)
+    return _inertial_result(res1, ref_kf, ids2, proj2, res2, frame, ri,
+                            ri.prior)
 
 
 def _pack_mask_bits(m: torch.Tensor) -> torch.Tensor:

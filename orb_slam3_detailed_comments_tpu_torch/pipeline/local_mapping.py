@@ -9,8 +9,10 @@ neighbours from the map's numpy arrays and claims features in neighbour
 order; triangulation, the fuse searches and BA run on the map's device.
 Each device stage uploads its inputs in one packed copy and fetches its
 results in one packed fetch: a keyframe event costs a handful of host
-syncs, not one per neighbour. The inertial branches (local inertial BA,
-the inertial spacing rule of keyframe culling) wait for a later slice.
+syncs, not one per neighbour. On an inertial map whose IMU is initialised
+the local BA is the System's local inertial BA (``inertial_ba``), the fuse
+window takes the temporal predecessor too, and keyframe culling keeps the
+merged preintegration gap under 0.5 s (3 s after VIBA2).
 
 ``run_local_ba`` snapshots a keyframe window from the host map into a
 padded ``ba.BAProblem`` on the map's device, solves it there and writes it
@@ -56,6 +58,9 @@ class LocalMapper:
         # fused, keyframes culled, the projection searches of the fuse
         # passes, and the local BA's padded camera count
         self.last_event: dict = {}
+        # set by the System on inertial sensors: () -> camera count; runs
+        # the local inertial BA once the IMU is initialised
+        self.inertial_ba = None
 
     def process_keyframe(self, k: int):
         """One LocalMapping iteration for keyframe k
@@ -75,10 +80,17 @@ class LocalMapper:
         window = [k] + [int(x) for x in covis_ids[: self.cfg.ba_window]]
         if m.n_kf > 2 and len(window) > 1:
             with timing.span("local BA"):
-                ev["ba_cams"] = run_local_ba(
-                    m, window, fixed=None, cam=self.cam,
-                    iters=self.cfg.ba_iters, max_points=self.cfg.max_ba_points,
-                    max_obs=self.cfg.max_ba_obs)
+                if self.inertial_ba is not None and m.imu_initialized:
+                    # LocalInertialBA replaces LocalBundleAdjustment once
+                    # the IMU is initialised (LocalMapping.cc:197-208)
+                    ev["ba_cams"] = self.inertial_ba()
+                    ev["inertial_ba"] = True
+                else:
+                    ev["ba_cams"] = run_local_ba(
+                        m, window, fixed=None, cam=self.cam,
+                        iters=self.cfg.ba_iters,
+                        max_points=self.cfg.max_ba_points,
+                        max_obs=self.cfg.max_ba_obs)
         with timing.span("KF culling"):
             ev["culled_kfs"] = self._keyframe_culling(k)
 
@@ -204,6 +216,11 @@ class LocalMapper:
                     seen.add(s)
             if len(neighbors) >= 25:
                 break
+        if m.imu_initialized:
+            # the temporal predecessor joins an inertial map's window
+            p = int(m.kf_prev[k])
+            if p >= 0 and p not in seen:
+                neighbors.append(p)
         cand = m.local_point_ids(np.asarray(neighbors))
         own = set(m.kf_feat_point[k][m.kf_feat_point[k] >= 0].tolist())
         cand = np.asarray([p for p in cand if p not in own], np.int64)
@@ -286,6 +303,17 @@ class LocalMapper:
             b = int(b)
             if b <= 1 or b == k or b in recent:
                 continue
+            # inertial spacing: culling b merges its window into its
+            # successor's; the merged gap stays under 0.5 s (3 s after
+            # VIBA2) or the chain is useless to inertial BA
+            # (LocalMapping.cc:1230-1260)
+            if m.imu_initialized and m.kf_pre_dT[b] > 0:
+                nxt = np.where(m.kf_prev == b)[0]
+                p = int(m.kf_prev[b])
+                if p >= 0 and len(nxt):
+                    gap = float(m.kf_ts[int(nxt[0])] - m.kf_ts[p])
+                    if gap > (3.0 if m.imu_ba2 else 0.5):
+                        continue
             feats = np.where(m.kf_feat_point[b] >= 0)[0]
             pts = m.kf_feat_point[b][feats]
             ok = m.pt_valid[pts]

@@ -119,6 +119,63 @@ def orbit_trajectory(n_frames, radius=0.0, advance=2.5, sway=0.35,
     return np.stack(Rs), np.stack(ts)
 
 
+def inertial_trajectory(n_frames, imu_per_frame=20, dt=0.005,
+                        gravity=np.array([0.0, 9.81, 0.0]),
+                        true_bg=np.zeros(3), true_ba=np.zeros(3),
+                        accel_amp=0.8, v0=np.array([0.05, 0.0, 0.35])):
+    """Ground-truth body trajectory and an exactly consistent IMU stream,
+    facing ``default_world`` (the JAX package's ``inertial_trajectory``):
+    smooth body rates and world accelerations integrated with the
+    first-order scheme that preintegration assumes, the rotation step a
+    float32 ``so3.exp`` as there. Camera == body, starting at the identity
+    looking down +z; gravity points along +y (image down).
+
+    Returns dict: R_cw [T, 3, 3], t_cw [T, 3], frame times ts [T], windows
+    (per frame the (acc [M, 3], gyro [M, 3], t [M]) since the previous
+    frame; None for frame 0), gravity, centers [T, 3]."""
+    from ..lie import so3
+    n_steps = n_frames * imu_per_frame
+    R = np.eye(3)
+    v = np.asarray(v0, np.float64).copy()
+    p = np.zeros(3)
+    g = np.asarray(gravity, np.float64)
+    Rs_f, ps_f = [R.copy()], [p.copy()]
+    accs, gyros, t_meas = [], [], []
+    for k in range(n_steps):
+        t = k * dt
+        w_b = np.array([0.03 * np.sin(2 * np.pi * 0.7 * t + 1.0),
+                        0.08 * np.sin(2 * np.pi * 0.5 * t),
+                        0.02 * np.sin(2 * np.pi * 0.9 * t + 2.0)])
+        a_w = accel_amp * np.array([np.sin(2 * np.pi * 0.6 * t),
+                                    0.5 * np.sin(2 * np.pi * 0.9 * t + 1.0),
+                                    0.4 * np.sin(2 * np.pi * 0.4 * t + 2.0)])
+        a_b = R.T @ (a_w - g)
+        accs.append(a_b + true_ba)
+        gyros.append(w_b + true_bg)
+        t_meas.append((k + 1) * dt)
+        p = p + v * dt + 0.5 * (R @ a_b + g) * dt * dt
+        v = v + (R @ a_b + g) * dt
+        R = R @ so3.exp(torch.from_numpy(
+            (w_b * dt).astype(np.float32))).numpy().astype(np.float64)
+        if (k + 1) % imu_per_frame == 0:
+            Rs_f.append(R.copy())
+            ps_f.append(p.copy())
+    accs = np.stack(accs).astype(np.float32)
+    gyros = np.stack(gyros).astype(np.float32)
+    t_meas = np.asarray(t_meas)
+    R_wb = np.stack(Rs_f)[:n_frames]
+    p_w = np.stack(ps_f)[:n_frames]
+    R_cw = np.transpose(R_wb, (0, 2, 1)).astype(np.float32)
+    t_cw = -np.einsum("tij,tj->ti", R_cw, p_w).astype(np.float32)
+    ts = np.arange(n_frames) * imu_per_frame * dt
+    windows = [None]
+    for i in range(1, n_frames):
+        s0, s1 = (i - 1) * imu_per_frame, i * imu_per_frame
+        windows.append((accs[s0:s1], gyros[s0:s1], t_meas[s0:s1]))
+    return dict(R_cw=R_cw, t_cw=t_cw, ts=ts, windows=windows, gravity=g,
+                centers=p_w.astype(np.float32))
+
+
 def camera_centers(R_cw, t_cw):
     return -np.einsum("tij,ti->tj", R_cw, t_cw)
 

@@ -95,7 +95,9 @@ def test_every_kernel_source_is_registered():
     "pipeline.local_mapping", "utils.evaluate_ate", "pipeline.system",
     "mapping.atlas", "utils.timing", "lie.sim3", "placerec.vocab",
     "placerec.keyframe_db", "placerec.pnp", "placerec.sim3_solver",
-    "optim.pose_graph", "optim.schur_pcg", "pipeline.loop_closing"])
+    "optim.pose_graph", "optim.schur_pcg", "pipeline.loop_closing",
+    "imu.preintegration", "imu.factors", "imu.inertial_init", "optim.jac",
+    "optim.vi_ba", "pipeline.inertial"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"

@@ -259,20 +259,34 @@ def test_track_stereo_iter_matches_track_stereo(runs, world):
 @pytest.mark.parametrize("sensor", [system.IMU_MONOCULAR, system.IMU_STEREO,
                                     system.IMU_RGBD])
 def test_inertial_sensors_raise(sensor):
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        system.System(CAM, sensor, enable_loop_closing=False, device="cpu")
+    """Since the inertial slice the inertial sensors construct, each with
+    its tracker's IMU state and the local inertial BA hook; only the async
+    mapper still raises, naming its item."""
+    slam = system.System(CAM, sensor, enable_loop_closing=False,
+                         device="cpu")
+    assert slam.inertial and slam.tracker.imu is not None
+    assert slam.local_mapper.inertial_ba is not None
+    with pytest.raises(NotImplementedError, match="item 1.4"):
+        system.System(CAM, sensor, enable_loop_closing=False,
+                      async_mapping=True, device="cpu")
 
 
 def test_imu_input_raises_on_stereo_and_rgbd(world):
+    """IMU input no longer raises: the visual stereo and RGB-D Systems take
+    the window and ignore it, as the JAX package does, online and
+    pipelined, with the same first pose as without it."""
     pair, imu = world[3][0], (np.zeros((1, 3)),) * 3
-    slam = _system(system.STEREO)
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        slam.track_stereo(*pair, 0.0, imu=imu)
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        list(slam.track_stereo_iter([(*pair, 0.0, imu)]))
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        _system(system.RGBD).track_rgbd(pair[0], np.ones_like(pair[0]), 0.0,
-                                        imu=imu)
+    a, b = _system(system.STEREO), _system(system.STEREO)
+    pose = a.track_stereo(*pair, 0.0)
+    assert pose is not None
+    np.testing.assert_array_equal(pose, b.track_stereo(*pair, 0.0, imu=imu))
+    assert b.tracker.imu is None
+    got = list(_system(system.STEREO).track_stereo_iter([(*pair, 0.0, imu)]))
+    np.testing.assert_array_equal(got[0], pose)
+    depth = np.ones_like(pair[0])
+    np.testing.assert_array_equal(
+        _system(system.RGBD).track_rgbd(pair[0], depth, 0.0),
+        _system(system.RGBD).track_rgbd(pair[0], depth, 0.0, imu=imu))
 
 
 def test_two_camera_rig_takes_bf_from_its_baseline():

@@ -113,11 +113,6 @@ def test_lost_map_is_reset_or_kept(frames):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sensor=system.IMU_MONOCULAR), "item 1.6"),
-    (dict(sensor=system.IMU_STEREO), "item 1.6"),
-    (dict(sensor=system.IMU_RGBD), "item 1.6"),
-    (dict(sensor=system.IMU_MONOCULAR, enable_loop_closing=True),
-     "item 1.6"),
     (dict(enable_loop_closing=True, async_mapping=True), "item 1.4"),
     (dict(async_mapping=True), "item 1.4"),
 ])
@@ -127,6 +122,56 @@ def test_unported_configurations_raise(kw, item):
     sensor = args.pop("sensor", system.MONOCULAR)
     with pytest.raises(NotImplementedError, match=item):
         system.System(CAM, sensor, **args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sensor=system.IMU_MONOCULAR),
+    dict(sensor=system.IMU_STEREO),
+    dict(sensor=system.IMU_RGBD),
+    dict(sensor=system.IMU_MONOCULAR, enable_loop_closing=True),
+])
+def test_inertial_configurations_construct_and_track(frames, kw):
+    """The inertial Systems construct on the CPU and take IMU windows: each
+    tracks two frames of the orbit with the windows of an
+    inertial_trajectory (0.1 s of 200 Hz samples between the frames), the
+    tracker preintegrating the second one; the stereo and RGB-D ones
+    initialise their map on the first frame, and the IMU schedule stays at
+    its first stage (no IMU initialisation on a one-keyframe chain)."""
+    args = dict(enable_loop_closing=False, baseline=0.11,
+                map_cfg=mapstore.MapConfig(max_kf=32, max_pt=2048,
+                                           n_feat=N_FEAT),
+                tracking_cfg=tracking.TrackingConfig(n_features=N_FEAT,
+                                                     min_init_matches=50),
+                device="cpu")
+    args.update(kw)
+    sensor = args.pop("sensor")
+    slam = system.System(CAM, sensor, **args)
+    assert slam.inertial and slam.tracker.imu is not None
+    assert slam.local_mapper.inertial_ba is not None
+    windows = synth_render.inertial_trajectory(2)["windows"]
+    planes = synth_render.default_world(np.random.default_rng(3))
+    R, t = synth_render.orbit_trajectory(60)
+    poses = []
+    for i in range(2):
+        if sensor == system.IMU_MONOCULAR:
+            poses.append(slam.track_monocular(frames[i], 0.1 * i,
+                                              imu=windows[i]))
+        elif sensor == system.IMU_STEREO:
+            left, right = synth_render.render_stereo_pair(CAM, planes, R[i],
+                                                          t[i], 0.11)
+            poses.append(slam.track_stereo(left, right, 0.1 * i,
+                                           imu=windows[i]))
+        else:
+            depth = synth_render.render_depth(CAM, planes, R[i], t[i])
+            poses.append(slam.track_rgbd(frames[i], depth, 0.1 * i,
+                                         imu=windows[i]))
+    pre = slam.tracker.imu.pre_last_frame
+    assert pre is not None and abs(float(pre.dT) - 0.1) < 1e-6
+    if sensor != system.IMU_MONOCULAR:
+        assert poses[0] is not None and slam.n_keyframes >= 1
+        assert slam.tracker.imu.pre_since_kf is not None
+    assert not slam.map.imu_initialized and slam._viba_stage == 0
+    assert slam.get_time_from_imu_init() == 0.0
 
 
 def test_loop_closing_is_on_by_default_and_refused(frames):
@@ -180,11 +225,24 @@ def test_vocab_path_is_taken(frames, tmp_path):
 
 
 def test_imu_input_raises(frames):
-    slam = _system()
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        slam.track_monocular(frames[0], 0.0, imu=(np.zeros((1, 3)),) * 3)
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        list(slam.track_monocular_iter([(frames[0], 0.0, object())]))
+    """Since the inertial slice nothing raises on IMU input: a visual
+    System takes the windows and ignores them, as the JAX package does
+    (its tracker has no IMU state), online and pipelined, with the same
+    poses as without them."""
+    window = tuple(np.zeros((3, 3), np.float32) for _ in range(2)) + (
+        np.array([0.01, 0.02, 0.03]),)
+    a, b = _system(), _system()
+    for i, img in enumerate(frames[:4]):
+        pa = a.track_monocular(img, i * 0.05)
+        pb = b.track_monocular(img, i * 0.05, imu=window)
+        assert (pa is None) == (pb is None)
+        if pa is not None:
+            np.testing.assert_array_equal(pa, pb)
+    assert a.tracker.imu is None and b.tracker.imu is None
+    c = _system()
+    got = list(c.track_monocular_iter(
+        (img, i * 0.05, window) for i, img in enumerate(frames[:2])))
+    assert len(got) == 2
 
 
 def test_system_and_atlas_default_to_the_card():
