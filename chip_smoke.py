@@ -83,8 +83,9 @@ Phases, each of which raises on failure:
      (chiprun_out/profile_prepare_stereo.txt);
   8. place recognition, at the cases of the JAX package's tests, frames
      ray-cast on the card, every kernel's launches checked against the
-     frames and the searches: (a) the 140-frame loop around box world 11
-     (test_loop_detected_and_trajectory_consistent's gates; each closure's
+     frames and the searches: (a) the first 60 frames of the 140-frame loop
+     around box world 11 (phase 10b runs all 140 in async mode;
+     test_loop_detected_and_trajectory_consistent's gates; each closure's
      keyframe count and global BA tier; the host clock of detection and
      correction; the first verified detection replayed on the CPU: the
      same candidates, the Sim3 within 1e-3); (b) relocalisation after a 6-
@@ -103,13 +104,33 @@ Phases, each of which raises on failure:
      replayed on the CPU and compared; the host clock of each IMU
      initialisation stage (with its full inertial BA) and local inertial
      BA; 3 steady inertial frames profiled on a copy of the tracker
-     (chiprun_out/profile_frames_imu_{mono,stereo}.txt).
-  ``--phases 3,9`` runs phases 1, 2 and the named ones only.
+     (chiprun_out/profile_frames_imu_{mono,stereo}.txt);
+ 10. the async mapping worker and the racing global BA (every exception a
+     background thread raises fails the phase): (a) phase 6's case with
+     System(cam, MONOCULAR, async_mapping=True), once with the worker and
+     the global-BA thread on CUDA streams of their own and once on the
+     default stream, each held to test_mono_end_to_end's gates with exact
+     launch counts; the host clock of steady and keyframe frames beside
+     phase 6's synchronous ones, the backpressure waits, the device busy
+     share of one profiled steady frame; (b) phase 8a's loop in async
+     mode (test_async_loop_closure_with_racing_gba's gates; each global
+     BA's time on its thread and camera count; the frames that made a
+     closing keyframe and those tracked while a correction ran; the
+     worker's first fuse search and Sim3 match search, on its stream,
+     against their plain versions); (c) the racing inertial global BA on a
+     copy of 9a's final map, card against CPU, and its abort; (d)
+     System.from_settings for the 8 files of examples/config/, an atlas
+     checkpoint of a 30-frame run loaded into a fresh System and
+     localised against (test_localize_against_loaded_atlas's gates), and
+     warmup() with the host clock of the first frames after it.
+  ``--phases 3,9,10`` runs phases 1, 2 and the named ones only (10 with
+  9a first, whose map 10c takes).
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
-"stereo", phase 8's under "phase8", phase 9's under "phase9"), the card's
+"stereo", phase 8's under "phase8", phase 9's under "phase9", phase 10's
+under "phase10"), the card's
 name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -117,11 +138,13 @@ there is no CUDA card or the port's package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -973,7 +996,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
     """Seed a map, track frames through Tracker.track_monocular (which
     adds keyframes to the seeded map), check the launch counts and the
     poses, re-run cpu_frames on the CPU, and on the card count the host
-    syncs of 3 frames and profile 5, from probe_from on, with a tracker
+    syncs of 3 frames and profile 2, from probe_from on, with a tracker
     and map restored to their state there."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch import native
@@ -999,7 +1022,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         f"frames), {m.n_points} points, {int((cov >= 15).sum())} covisibility "
         f"pairs >= 15, in {seed_s:.1f} s")
     frames = list(range(1, n_track + 1))
-    probe = frames[frames.index(probe_from):][:8]
+    probe = frames[frames.index(probe_from):][:5]
     imgs = {i: render_host(cam, planes, R[i], t[i], dev)
             for i in frames}
     C = sr.camera_centers(R, t)
@@ -1062,7 +1085,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         restore = lambda i: _restore(tracking, cam, map_cfg, track_cfg,
                                      orb_cfg, dev, snaps[i])
         syncs = count_syncs(restore(probe[0]), imgs, probe[:3])
-        prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:8])
+        prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:5])
         # the device's busy share of a frame: its kernel time (profiled)
         # over the frame's unprofiled host-clock time
         prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
@@ -1232,7 +1255,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         syncs = count_syncs(restore(init_at + 8), imgs,
                             [init_at + 8 + j for j in range(3)])
         prof = profile_frames(lambda: restore(init_at + 11), imgs,
-                              [init_at + 11 + j for j in range(3)],
+                              [init_at + 11],
                               table="profile_frames_bootstrap.txt",
                               alone=False)
         prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
@@ -1369,7 +1392,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     one event on the CPU from a snapshot of the map taken before it and
     compares (the first from frame replay_from on that culled a keyframe,
     else the first from there on); on the card also profiles that event
-    and 3 frames from profile_from on, and holds the fuse passes' searches
+    and the frame profile_from, and holds the fuse passes' searches
     against the plain version at their own shapes."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch import native
@@ -1574,8 +1597,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
         rec["profile"] = profile_frames(
             lambda: _restore(tracking, cam, map_cfg, track_cfg, orb_cfg, dev,
                              prof_snap), imgs,
-            [profile_from + j for j in range(3)],
-            table="profile_frames_system.txt", alone=False)
+            [profile_from], table="profile_frames_system.txt", alone=False)
         rec["profile"]["busy_share"] = (rec["profile"]["device_ms"]
                                         / rec["frame_ms_median"])
         log(f"device busy share of a steady frame: "
@@ -2335,6 +2357,10 @@ LOOP_CAM_KW = dict(fx=400.0, fy=400.0, cx=376.0, cy=240.0, width=752,
 MERGE_CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752,
                     height=480)
 LOOP_GATES = dict(tracked=0.7, loops=1, ate_m=0.20, replay_rel=1e-3)
+# phase 8a feeds the first 40 of the loop's 140 frames (two closures): phase
+# 10b runs all 140 in async mode, and the whole script must stay well
+# inside its time limit
+LOOP_FEED = 40
 RELOC_GATES = dict(min_kf=5, matched=15)
 MERGE_GATES = dict(tracked1=0.7, tracked2=0.5, rows=0.7, ate_poses=0.6,
                    ate_m=0.18)
@@ -2385,7 +2411,7 @@ def span_ms(stage, since=0):
 
 
 def loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140, gates=LOOP_GATES,
-              map_cfg=None, track_cfg=None):
+              map_cfg=None, track_cfg=None, n_feed=None):
     """8a: System(cam, MONOCULAR) at its defaults around box world seed
     11 (loop_trajectory(radius=3, closes=1.05)): > 70 % of the frames
     tracked, >= 1 loop closed, scale-aligned ATE < 0.20 m, a consistent
@@ -2394,7 +2420,8 @@ def loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140, gates=LOOP_GATES,
     correction" spans and each kernel's launches. The first detection that
     verified a candidate is replayed on the CPU from a snapshot of the map
     and its keyframe database: the same candidates and a Sim3 within
-    replay_rel."""
+    replay_rel. n_feed: feed only the trajectory's first n_feed frames
+    (the gates and the ATE then over those)."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
         MapStore)
@@ -2408,6 +2435,8 @@ def loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140, gates=LOOP_GATES,
     cam = cameras.pinhole(**cam_kw)
     walls = sr.box_world(np.random.default_rng(11))
     R, t = sr.loop_trajectory(n_frames, radius=3.0, closes=1.05)
+    n_frames = n_feed or n_frames
+    R, t = R[:n_frames], t[:n_frames]
     frames = [sr.render_image(cam, walls, R[i], t[i], dev)
               for i in range(n_frames)]
     ts = 0.05 * np.arange(n_frames)
@@ -2855,9 +2884,8 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
     first track_step_inertial_lf from replay_from on replayed on the CPU;
     the first successful IMU initialisation replayed on the CPU from the
     map it found; the host clock of the IMU initialisation (with its full
-    inertial BA) and of each local inertial BA; on the card 3 steady
-    inertial frames from profile_from on profiled on a copy of the
-    tracker."""
+    inertial BA) and of each local inertial BA; on the card the steady
+    inertial frame profile_from profiled on a copy of the tracker."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch import native
     from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
@@ -2969,7 +2997,9 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
             frame[0] = i
             if i == profile_from and dev.type == "cuda":
                 reloc, tk.relocalizer = tk.relocalizer, None
-                prof_tk = copy.deepcopy(tk)
+                # the copy takes a lock of its own (a lock has no copy)
+                prof_tk = copy.deepcopy(
+                    tk, {id(tk.map_lock): threading.RLock()})
                 tk.relocalizer = reloc
             s0 = dict(tk.n_inertial_steps)
             steps0, dr0 = tk.n_steps, tk.n_dead_reckoned
@@ -3026,6 +3056,8 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
     est = np.array([r[1:4] for r in rows])
     rmse, n_ate, scale = evaluate_ate.ate_rmse(ts, traj["centers"], est_ts,
                                                est, with_scale=mono)
+    if mono:
+        FINAL_MAPS["9a"] = dict(map=map_arrays(m), cfg=m.cfg, cam_kw=cam_kw)
     rec = dict(tracked=tracked, n_frames=n, keyframes=slam.n_keyframes,
                points=slam.n_map_points, imu_initialized=m.imu_initialized,
                bg=bg.tolist(), bg_err=float(np.abs(bg - true_bg).max()),
@@ -3097,13 +3129,14 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
         fixed_key = prof_tk._imu_prior_key
 
         def make():
-            tk2 = copy.deepcopy(prof_tk)
+            tk2 = copy.deepcopy(prof_tk,
+                                {id(prof_tk.map_lock): threading.RLock()})
             if fixed_key is not None:
                 tk2._imu_prior_key = (id(tk2.map),) + tuple(fixed_key[1:])
             return tk2
 
         rec["profile"] = profile_frames(
-            make, None, [profile_from + j for j in range(3)],
+            make, None, [profile_from],
             table=f"profile_frames_imu_{sensor}.txt", alone=False,
             track=feed)
         if steady:
@@ -3114,16 +3147,772 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
     return rec
 
 
+# ---------------------------------------------------------------- phase 10
+# what a background thread raised during phase 10 (threading.excepthook)
+THREAD_ERRORS = []
+# 9a's final map, for 10c
+FINAL_MAPS = {}
+# the two stream designs of 10a: the port's (every thread on the device's
+# default stream), and each background thread on a CUDA stream of its own
+ASYNC_MODES = ("shared", "own")
+LOOP_ASYNC_GATES = dict(tracked=0.7, loops=1, gba=1, ate_m=0.30)
+RESUME_GATES = dict(localised=5, of=10)
+
+
+def _watch_threads():
+    """Record every exception a thread raises (and still print it)."""
+    prev = threading.excepthook
+
+    def hook(args):
+        name = args.thread.name if args.thread is not None else "?"
+        THREAD_ERRORS.append(f"{name}: {args.exc_type.__name__}: "
+                             f"{args.exc_value}")
+        prev(args)
+
+    threading.excepthook = hook
+    return prev
+
+
+def _stats(ms):
+    ms = [float(x) for x in ms]
+    return dict(n=len(ms), median=float(np.median(ms)) if ms else None,
+                p90=float(np.percentile(ms, 90)) if ms else None)
+
+
+def _mono_gates(slam, poses, ts, C, gates):
+    """test_mono_end_to_end's gates on a System run; (record, failures)."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import tracking
+    from orb_slam3_detailed_comments_tpu_torch.utils import evaluate_ate
+    n = len(poses)
+    tracked = sum(p is not None for p in poses)
+    rows = slam.trajectory_tum()
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(
+        ts[:n], C[:n], np.array([r[0] for r in rows]),
+        np.array([r[1:4] for r in rows]))
+    errs = slam.check_map_consistency()
+    last = int((slam.get_tracked_map_points() >= 0).sum())
+    rec = dict(tracked=tracked, keyframes=slam.n_keyframes,
+               points=slam.n_map_points, state=slam.get_tracking_state(),
+               last_tracked=last, consistency=errs, rows=len(rows),
+               ate_m=rmse, ate_poses=n_ate, ate_scale=scale)
+    fails = [name for name, bad in (
+        ("frames tracked", tracked <= gates["tracked"] * n),
+        ("keyframes", slam.n_keyframes < gates["min_kf"]),
+        ("map points", slam.n_map_points <= gates["min_points"]),
+        ("final state", rec["state"] != tracking.OK or slam.is_lost()),
+        ("last frame's map points", last <= gates["last_tracked"]),
+        ("map consistency", errs != []),
+        ("trajectory rows", len(rows) <= gates["rows"] * n),
+        ("ATE", not (n_ate > gates["ate_poses"] * n
+                     and rmse < gates["ate_m"]))) if bad]
+    return rec, fails
+
+
+def timed_system_run(slam, frames, ts, dev, profile_at=None):
+    """Feed a System its frames with the counts at 0 just before; each
+    frame's host clock, whether it made a keyframe (the tracker queued one)
+    and took the fused step; the frame profile_at (if steady) under
+    torch.profiler: the kernels of every stream in its window. Ends with
+    shutdown() (the worker and a racing global BA drained); returns
+    (poses, times, kf_frames, steady, launches, n_fuse, busy)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync = torch_sync(dev)
+    tk, lm = slam.tracker, slam.local_mapper
+    n_fuse = [0]
+    process, post = lm.process_keyframe, slam._post_track
+    made_kf = []
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event.get("fuse_searches", 0)
+
+    def post_track(pose, t_=0.0):
+        made_kf.append(bool(tk.new_keyframes))
+        return post(pose, t_)
+
+    lm.process_keyframe, slam._post_track = counted, post_track
+    poses, times, steady, busy = [], [], [], None
+    reset_counts()
+    for i, (img, t) in enumerate(zip(frames, ts)):
+        steps0, ref0 = tk.n_steps, tk.n_ref_kf_searches
+        prof = None
+        if i == profile_at and dev.type == "cuda":
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        sync()
+        t0 = time.perf_counter()
+        poses.append(slam.track_monocular(img, float(t)))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            d_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            busy = dict(frame=i, device_ms=d_ms, host_ms_profiled=times[-1])
+        if (poses[-1] is not None and tk.n_steps > steps0
+                and tk.n_ref_kf_searches == ref0 and not made_kf[-1]
+                and i != profile_at):
+            steady.append(i)
+    slam.shutdown()
+    launches = dict(native.launches)
+    lm.process_keyframe = process
+    slam.__dict__.pop("_post_track", None)
+    kf_frames = [i for i, k in enumerate(made_kf) if k]
+    return poses, times, kf_frames, steady, launches, n_fuse[0], busy
+
+
+@contextlib.contextmanager
+def stream_design(mode):
+    """The port queues its background threads' kernels on the device's
+    default stream. For the "own" design of 10a's comparison the mapping
+    worker and the global BA's thread run on CUDA streams of their own,
+    patched in for the run, with the handoffs that design needs: the worker
+    finishes its stream before it releases the map lock, and the global
+    BA's thread waits for the whole card (its snapshot was queued on the
+    worker's stream) before it starts, and finishes its stream at its
+    end."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    if mode != "own":
+        yield
+        return
+    S, L = system.System, loop_closing.LoopCloser
+    real = (S._mapping_worker, S._process_keyframe, L._gba_thread_main)
+
+    def on_own_stream(fn, device_of, wait_card=False):
+        def run(self, *a):
+            dev = device_of(self, *a)
+            if dev.type != "cuda":
+                return fn(self, *a)
+            if wait_card:
+                torch.cuda.synchronize(dev)
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                try:
+                    return fn(self, *a)
+                finally:
+                    torch.cuda.current_stream(dev).synchronize()
+        return run
+
+    def process_then_finish(self, *a):
+        out = real[1](self, *a)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    S._mapping_worker = on_own_stream(real[0], lambda s: s.device)
+    S._process_keyframe = process_then_finish
+    L._gba_thread_main = on_own_stream(real[2], lambda s, t, m, *a: m.device,
+                                       wait_card=True)
+    try:
+        yield
+    finally:
+        S._mapping_worker, S._process_keyframe, L._gba_thread_main = real
+
+
+def async_mono_path(dev, sync_rec=None, cam_kw=CAM_KW, n_frames=N_SYS,
+                    world_seed=7, map_cfg=None, track_cfg=None,
+                    gates=SYS_GATES, profile_at=50):
+    """10a: System(cam, MONOCULAR, async_mapping=True) at its defaults on
+    phase 6's case, once with each stream design (every thread on the
+    default stream, the port's; or the worker and the global-BA thread on
+    CUDA streams of their own), each held to test_mono_end_to_end's gates with exact launch
+    counts; the host clock of steady and keyframe frames beside the
+    synchronous System's (phase 6's record of this call, or a synchronous
+    run here when phase 6 did not run); the backpressure waits; the device
+    busy share of one profiled steady frame (all streams)."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(60)
+    frames = [render_host(cam, planes, R[i], t[i], dev)
+              for i in range(n_frames)]
+    C = sr.camera_centers(R, t)
+    ts = 0.05 * np.arange(len(C))
+    kw = dict(device=dev)
+    if map_cfg is not None:
+        kw["map_cfg"] = map_cfg
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    out = {}
+    modes = ASYNC_MODES if sync_rec is not None else ("sync",) + ASYNC_MODES
+    for mode in modes:
+        with stream_design(mode):
+            slam = system.System(cam, system.MONOCULAR,
+                                 async_mapping=mode != "sync", **kw)
+            poses, times, kf_frames, steady, launches, n_fuse, busy = \
+                timed_system_run(slam, frames, ts, dev,
+                                 profile_at if mode != "sync" else None)
+        expect = expected_launches(slam.tracker, n_frames, n_fuse)
+        rec, fails = _mono_gates(slam, poses, ts, C, gates)
+        st = _stats([times[i] for i in steady])
+        kf = _stats([times[i] for i in kf_frames])
+        rec.update(mode=mode, launches=launches, expected=expect,
+                   frame_ms_median=st["median"], frame_ms_p90=st["p90"],
+                   n_steady=st["n"], kf_frame_ms_median=kf["median"],
+                   kf_frame_ms_p90=kf["p90"], n_kf_frames=kf["n"],
+                   kf_frame_ms=[round(times[i], 2) for i in kf_frames],
+                   backpressure_waits=slam.n_backpressure_waits,
+                   loops_closed=slam.loop_closer.n_loops_closed,
+                   gba_log=list(slam.loop_closer.gba_log))
+        if busy is not None and st["median"]:
+            busy["busy_share"] = busy["device_ms"] / st["median"]
+            rec["busy"] = busy
+        out[mode] = rec
+        log(f"10a {mode}: {rec['tracked']}/{n_frames} tracked, "
+            f"{rec['keyframes']} KF, {rec['points']} points, ATE "
+            f"{rec['ate_m']:.5f} m over {rec['ate_poses']}; steady frames "
+            f"median {st['median']:.2f} ms p90 {st['p90']:.2f} over "
+            f"{st['n']}; keyframe frames median {kf['median']:.2f} p90 "
+            f"{kf['p90']:.2f} over {kf['n']}; backpressure waits "
+            f"{slam.n_backpressure_waits}; busy {busy}; launches {launches}")
+        if fails:
+            raise AssertionError(f"10a {mode} missed the gates: {fails}: "
+                                 f"{rec}")
+        if dev.type == "cuda":
+            for k, want in expect.items():
+                if launches[k] != want or want == 0:
+                    raise AssertionError(f"10a {mode}: {k}: {launches[k]} "
+                                         f"launches, expected {want}")
+    ref = sync_rec if sync_rec is not None else out.pop("sync")
+    kf_ref = list(ref["kf_frame_ms"].values()) if isinstance(
+        ref["kf_frame_ms"], dict) else ref["kf_frame_ms"]
+    out["sync"] = dict(source="phase 6" if sync_rec is not None else "10a",
+                       frame_ms_median=ref["frame_ms_median"],
+                       frame_ms_p90=ref["frame_ms_p90"],
+                       kf_frame_ms_median=float(np.median(kf_ref)),
+                       kf_frame_ms_p90=float(np.percentile(kf_ref, 90)))
+    log(f"10a: synchronous ({out['sync']['source']}) steady median "
+        f"{out['sync']['frame_ms_median']:.2f} p90 "
+        f"{out['sync']['frame_ms_p90']:.2f} ms, keyframe frames median "
+        f"{out['sync']['kf_frame_ms_median']:.2f} p90 "
+        f"{out['sync']['kf_frame_ms_p90']:.2f} ms")
+    out["launches"] = out["shared"]["launches"]
+    return out
+
+
+def _capture_worker_searches(slam, keep):
+    """Wrap the two best-2 searches: the first call of each from the
+    mapping worker keeps its inputs, outputs and stream. Returns undo."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import hamming
+    undo = []
+    for name in ("hamming_best2", "hamming_best2_windowed"):
+        real = getattr(hamming, name)
+
+        def wrapped(*args, _real=real, _name=name):
+            out = _real(*args)
+            if (threading.current_thread() is slam._worker
+                    and _name not in keep):
+                dev = args[0].device
+                on = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                      else None)
+                if on is not None:
+                    on.synchronize()
+                keep[_name] = dict(
+                    args=[a.clone() for a in args],
+                    out=[o.clone() for o in out],
+                    stream=None if on is None else (
+                        "default" if on == torch.cuda.default_stream(dev)
+                        else "own"))
+            return out
+
+        setattr(hamming, name, wrapped)
+        undo.append(lambda n=name, r=real: setattr(hamming, n, r))
+    return lambda: [u() for u in undo]
+
+
+def async_loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140,
+                    gates=LOOP_ASYNC_GATES, map_cfg=None, track_cfg=None):
+    """10b: phase 8a's loop with async_mapping=True (the worker and the
+    racing global BA on streams of their own):
+    test_async_loop_closure_with_racing_gba's gates (> 70 % tracked, >= 1
+    loop, runs + aborts of the global BA >= 1, scale-aligned ATE < 0.30 m,
+    a consistent map after shutdown()), exact launch counts; the host clock
+    of the frames that made a closing keyframe and of the frames tracked
+    while a correction ran, against 8a's; each global BA's time on its
+    thread and camera count; the first fuse search and the first Sim3
+    match search that the worker launched on its stream, held against
+    their plain versions on the same inputs."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import hamming
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        loop_closing, system)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+    cam = cameras.pinhole(**cam_kw)
+    walls = sr.box_world(np.random.default_rng(11))
+    R, t = sr.loop_trajectory(n_frames, radius=3.0, closes=1.05)
+    frames = [sr.render_image(cam, walls, R[i], t[i], dev)
+              for i in range(n_frames)]
+    ts = 0.05 * np.arange(n_frames)
+    kw = dict(device=dev)
+    if map_cfg is not None:
+        kw["map_cfg"] = map_cfg
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    slam = system.System(cam, system.MONOCULAR, async_mapping=True, **kw)
+    corrections, keep, parts = [], {}, {}
+    build = slam._build_recognition
+
+    def part(obj, name, label):
+        real = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                parts[label] = parts.get(label, 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+        setattr(obj, name, timed)
+        return lambda: setattr(obj, name, real)
+
+    # a correction's parts (module functions, patched for this run)
+    undo_parts = [part(loop_closing, "_chain_covis_edges", "edges"),
+                  part(loop_closing, "_solve_essential_graph",
+                       "essential graph"),
+                  part(loop_closing, "_apply_pose_graph", "apply graph")]
+
+    def build_hooked(*a, **k):
+        build(*a, **k)
+        lc = slam.loop_closer
+        correct = lc._correct_loop
+        part(lc, "_fuse_loop_points", "loop fuse")
+        part(lc, "_launch_global_ba", "GBA launch")
+        part(lc.map, "update_point_stats", "point stats")
+
+        def logged(k_, c, S):
+            parts.clear()
+            t0 = time.perf_counter()
+            out = correct(k_, c, S)
+            corrections.append(dict(k=int(k_), c=int(c), closed=bool(out),
+                                    frame=int(lc.map.kf_frame_id[k_]),
+                                    start=t0, end=time.perf_counter(),
+                                    n_kf=int(lc.map.n_kf),
+                                    parts_ms={k2: round(v, 1)
+                                              for k2, v in parts.items()}))
+            return out
+        lc._correct_loop = logged
+
+    slam._build_recognition = build_hooked
+    undo = _capture_worker_searches(slam, keep)
+    starts = []
+    n_lc = len(span_ms("loop correction"))
+    real_track = slam.track_monocular
+
+    def stamped(img, t_):
+        starts.append(time.perf_counter())
+        return real_track(img, t_)
+
+    slam.track_monocular = stamped
+    try:
+        poses, times, kf_frames, steady, launches, n_fuse, _ = \
+            timed_system_run(slam, frames, ts, dev)
+    finally:
+        undo()
+        for u in undo_parts:
+            u()
+        slam.__dict__.pop("track_monocular", None)
+    expect = expected_launches(slam.tracker, n_frames, n_fuse)
+    lc = slam.loop_closer
+    rows = slam.trajectory_tum()
+    rmse, n_ate, scale = evaluate_ate.ate_rmse(
+        ts, sr.camera_centers(R, t), np.array([r[0] for r in rows]),
+        np.array([r[1:4] for r in rows]))
+    errs = slam.check_map_consistency()
+    n_ok = sum(p is not None for p in poses)
+    ends = [s + ms / 1e3 for s, ms in zip(starts, times)]
+    for c in corrections:
+        c["frame_ms"] = times[c["frame"]] if c["frame"] < len(times) else None
+        during = [times[i] for i in range(n_frames)
+                  if starts[i] < c["end"] and ends[i] > c["start"]]
+        c["overlapping_frames"] = len(during)
+        c["max_overlapping_frame_ms"] = max(during) if during else None
+        c["ms"] = 1e3 * (c.pop("end") - c.pop("start"))
+    rec = dict(tracked=n_ok, keyframes=slam.n_keyframes,
+               loops_closed=lc.n_loops_closed, gba_runs=lc.n_gba_runs,
+               gba_aborted=lc.n_gba_aborted, gba_log=list(lc.gba_log),
+               corrections=corrections, ate_m=rmse, ate_poses=n_ate,
+               ate_scale=scale, consistency=errs, launches=launches,
+               expected=expect,
+               loop_correction_ms=span_ms("loop correction", n_lc),
+               frame_ms=_stats(times), steady=_stats([times[i]
+                                                      for i in steady]),
+               kf_frames=_stats([times[i] for i in kf_frames]),
+               backpressure_waits=slam.n_backpressure_waits)
+    log(f"10b async loop: {n_ok}/{n_frames} tracked, {slam.n_keyframes} KF, "
+        f"{lc.n_loops_closed} loops closed, global BA {lc.n_gba_runs} "
+        f"applied / {lc.n_gba_aborted} aborted; GBAs "
+        + "; ".join(f"{g['kind']} C={g['C']} {g['seconds'] * 1e3:.1f} ms "
+                    f"{'applied' if g['applied'] else 'aborted'}"
+                    for g in lc.gba_log)
+        + f"; corrections (worker thread): "
+        + "; ".join(f"KF {c['k']} of frame {c['frame']} -> {c['c']} at "
+                    f"{c['n_kf']} KF: {c['ms']:.1f} ms ({c['parts_ms']}), "
+                    f"that frame {c['frame_ms']} ms, "
+                    f"{c['overlapping_frames']} frames during it, the "
+                    f"longest {c['max_overlapping_frame_ms']} ms"
+                    for c in corrections)
+        + f"; ATE {rmse:.5f} m over {n_ate} (scale {scale:.4f}); "
+        f"consistency {errs}; frames {rec['frame_ms']}, steady "
+        f"{rec['steady']}, keyframe frames {rec['kf_frames']}; "
+        f"backpressure waits {slam.n_backpressure_waits}; launches "
+        f"{launches}")
+    fails = [name for name, bad in (
+        ("frames tracked", n_ok <= gates["tracked"] * n_frames),
+        ("loops closed", lc.n_loops_closed < gates["loops"]),
+        ("global BA", lc.n_gba_runs + lc.n_gba_aborted < gates["gba"]),
+        ("ATE", not rmse < gates["ate_m"]),
+        ("map consistency", errs != [])) if bad]
+    if fails:
+        raise AssertionError(f"10b missed the gates: {fails}: {rec}")
+    if dev.type == "cuda":
+        for k, want in expect.items():
+            if launches[k] != want or want == 0:
+                raise AssertionError(f"10b: {k}: {launches[k]} launches, "
+                                     f"expected {want}")
+    plain = dict(hamming_best2=hamming.hamming_best2_plain,
+                 hamming_best2_windowed=hamming.hamming_best2_windowed_plain)
+    rec["worker_searches"] = {}
+    for name, fn in plain.items():
+        if name not in keep:
+            raise AssertionError(f"10b: the worker launched no {name}")
+        got, args = keep[name]["out"], keep[name]["args"]
+        ref = fn(*args)
+        equal = all(bool((a == b).all()) for a, b in zip(got, ref))
+        rec["worker_searches"][name] = dict(
+            queries=int(args[0].shape[0]), stream=keep[name]["stream"],
+            equal=equal)
+        if not equal:
+            raise AssertionError(f"10b: {name} from the worker: "
+                                 f"{rec['worker_searches'][name]}")
+    log(f"10b: the worker's searches against their plain versions: "
+        f"{rec['worker_searches']}")
+    return rec
+
+
+def chain_residual(m, calib):
+    """The largest 9-dof preintegration residual along the map's temporal
+    chain at its current states."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.imu import factors
+    from orb_slam3_detailed_comments_tpu_torch.imu import preintegration
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import inertial
+    chain = [int(k) for k in m.temporal_chain()]
+    R_bc, t_bc = inertial.extrinsic(calib)
+    g = torch.tensor([0.0, 0.0, -inertial.GRAVITY_MAG], dtype=torch.float64)
+    worst = 0.0
+    for a, b in zip(chain[:-1], chain[1:]):
+        if m.kf_prev[b] != a or m.kf_pre_dT[b] <= 0:
+            continue
+        pre = preintegration.index(m.get_kf_preintegration([b]), 0)
+        pre = preintegration.Preintegrated(*[x.cpu().double() for x in pre])
+        (R_i, p_i), (R_j, p_j) = (inertial.body_from_camera(
+            m.kf_R[k], m.kf_t[k], R_bc, t_bc) for k in (a, b))
+        f = lambda x: torch.as_tensor(np.asarray(x, np.float64))
+        r = factors.inertial_residual(
+            f(R_i), f(p_i), f(m.kf_vel[a]), f(R_j), f(p_j), f(m.kf_vel[b]),
+            f(m.kf_bg[a]), f(m.kf_ba[a]), pre, g)
+        worst = max(worst, float(r.abs().max()))
+    return worst
+
+
+# 10c: the temporal chain's largest preintegration residual after the JAX
+# package's racing inertial global BA of 9a's final map (0.0029194653
+# before), on the CPU: replay_card_map of tests/test_torch_async.py on the
+# map that 10c exports; the port's solve is held to it within JAX_10C_MARGIN
+JAX_10C_RESIDUAL_AFTER = 0.005536496639251709
+JAX_10C_MARGIN = 0.05
+
+
+def inertial_gba_path(dev, snap, tol=1e-3, reduce=0.25, vel_noise=0.4):
+    """10c: the racing inertial global BA on a copy of 9a's final map (IMU
+    initialised), on the card and on the CPU: launched and waited for, one
+    run applied, the velocities changed, every state finite, the card's
+    states within tol of the CPU's, and the chain's preintegration residual
+    after the solve within JAX_10C_MARGIN of the JAX package's on the same
+    map (on this converged map the solve, at zero bias priors as in the JAX
+    package, trades that residual against the visual terms: it rises from
+    its value before in both packages). Then
+    test_post_loop_inertial_gba_reconciles_velocities' gate on a copy whose
+    velocities are perturbed by N(0, vel_noise) m/s but the gauge
+    keyframe's: the residual falls below reduce x its value before. Then a
+    long run (gba_iters=400, gba_chunk=1) aborted at once: counted, poses
+    and velocities equal to the bit."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.imu.preintegration import (
+        ImuCalib)
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    cam = cameras.pinhole(**snap["cam_kw"])
+    calib = ImuCalib.default()
+    state = ("kf_R", "kf_t", "kf_vel", "kf_bg", "kf_ba")
+
+    def solve(where, perturb=False):
+        d = dev if where != "cpu" else torch.device("cpu")
+        m = MapStore.from_numpy(snap["map"], snap["cfg"], device=d)
+        if perturb:
+            chain = m.temporal_chain()[1:]
+            m.kf_vel[chain] += np.random.default_rng(0).normal(
+                0, vel_noise, (len(chain), 3)).astype(np.float32)
+        r0 = chain_residual(m, calib)
+        v0 = m.kf_vel.copy()
+        lc = loop_closing.LoopCloser(m, cam, None,
+                                     loop_closing.LoopClosingConfig(
+                                         async_gba=True))
+        lc.map_lock, lc.imu_calib = threading.RLock(), calib
+        window = [int(k) for k in m.kf_ids()]
+        lc._launch_global_ba(window, window[:1])
+        lc.wait_gba()
+        finite = all(np.isfinite(getattr(m, f)).all() for f in state) and \
+            np.isfinite(m.pt_xyz).all()
+        r = dict(runs=lc.n_gba_runs, aborted=lc.n_gba_aborted,
+                 residual_before=r0, residual_after=chain_residual(m, calib),
+                 vel_changed=bool((m.kf_vel != v0).any()),
+                 finite=bool(finite), gba=lc.gba_log[-1])
+        log(f"10c {where}: {r}")
+        return m, lc, r
+
+    (mc, lc, rec_card), (mp, _, rec_cpu) = solve("card"), solve("cpu")
+    _, _, rec_pert = solve("card, velocities perturbed", perturb=True)
+    rec = dict(card=rec_card, cpu=rec_cpu, perturbed=rec_pert)
+    rec["card_vs_cpu"] = {f: float(np.abs(getattr(mc, f)
+                                          - getattr(mp, f)).max())
+                          for f in state}
+    log(f"10c card against CPU (largest difference): {rec['card_vs_cpu']}")
+    before = {f: getattr(mc, f).copy() for f in ("kf_t", "kf_vel")}
+    lc.cfg.gba_iters, lc.cfg.gba_chunk = 400, 1
+    window = [int(k) for k in mc.kf_ids()]
+    lc._launch_global_ba(window, window[:1])
+    lc.abort_gba()
+    rec["abort"] = dict(aborted=lc.n_gba_aborted, runs=lc.n_gba_runs,
+                        unchanged=all(np.array_equal(getattr(mc, f), a)
+                                      for f, a in before.items()))
+    log(f"10c abort: {rec['abort']}")
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    # the map, for replaying this solve off the card
+    cfg = snap["cfg"]
+    np.savez_compressed(out_dir / "map_9a.npz", **{
+        k: v for k, v in snap["map"].items() if isinstance(v, np.ndarray)},
+        imu_flags=np.asarray([snap["map"][f] for f in (
+            "imu_initialized", "imu_ba1", "imu_ba2")]),
+        map_cfg=np.asarray([cfg.max_kf, cfg.max_pt, cfg.n_feat,
+                            cfg.n_levels]), cam=np.asarray([
+                                snap["cam_kw"][k] for k in (
+                                    "fx", "fy", "cx", "cy", "width",
+                                    "height")], np.float64))
+    fails = []
+    for where, r in (("card", rec_card), ("cpu", rec_cpu)):
+        if not (r["runs"] == 1 and r["vel_changed"] and r["finite"]):
+            fails.append(f"{where}: {r}")
+        if abs(r["residual_after"] / JAX_10C_RESIDUAL_AFTER
+               - 1) > JAX_10C_MARGIN:
+            fails.append(f"{where}: chain residual {r['residual_before']} -> "
+                         f"{r['residual_after']}, the JAX package's -> "
+                         f"{JAX_10C_RESIDUAL_AFTER} (within "
+                         f"{JAX_10C_MARGIN:.0%}; if 9a's map changed, "
+                         f"replay its export with tests/test_torch_async.py)")
+    if max(rec["card_vs_cpu"].values()) > tol:
+        fails.append(f"card and CPU part: {rec['card_vs_cpu']}")
+    if not (rec_pert["runs"] == 1 and rec_pert["residual_after"]
+            < reduce * rec_pert["residual_before"]):
+        fails.append(f"perturbed: {rec_pert}")
+    if not (lc.n_gba_aborted >= 1 and lc.n_gba_runs == 1
+            and rec["abort"]["unchanged"]):
+        fails.append(f"abort: {rec['abort']}")
+    rec["failed"] = fails
+    return rec
+
+
+def _atlas_equal(a, b):
+    """Every array of the checkpoint format, IMU flag and capacity of two
+    Atlases equal."""
+    from orb_slam3_detailed_comments_tpu_torch.utils import serialization
+    if len(a.maps) != len(b.maps) or a.active_id != b.active_id:
+        return False
+    for ma, mb in zip(a.maps, b.maps):
+        if not all(np.array_equal(getattr(ma, k), getattr(mb, k))
+                   for k in serialization._MAP_ARRAYS):
+            return False
+        if ((ma.imu_initialized, ma.imu_ba1, ma.imu_ba2)
+                != (mb.imu_initialized, mb.imu_ba1, mb.imu_ba2)):
+            return False
+    return True
+
+
+def settings_path(dev, cam_kw=CAM_KW, n=30, world_seed=7,
+                  gates=RESUME_GATES, map_cfg=None, track_cfg=None,
+                  n_orbit=None):
+    """10d: System.from_settings on the card for every shipped settings
+    file (EuRoC.yaml as IMU_STEREO with test_from_settings_wires_configs'
+    checks); save_atlas after a 30-frame run (world seed 7, the case of
+    test_localize_against_loaded_atlas), load_atlas into a fresh card
+    System (every array equal), then that test's gates in localisation
+    mode; warmup() on a fresh card System (no nvcc build after it) and the
+    host clock of its first frames beside a steady frame's. n_orbit: the
+    orbit's length, of which the first n frames are fed (n by default)."""
+    import tempfile
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        system, tracking)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        config, synth_render as sr)
+    rec = {}
+    cfg_dir = REPO / "examples" / "config"
+    built = {}
+    for f in sorted(cfg_dir.glob("*.yaml")):
+        s = config.load_settings(str(f))
+        slam = system.System.from_settings(s, system.MONOCULAR, device=dev)
+        built[f.name] = dict(n_features=slam.tracker.orb_cfg.n_features,
+                             width=slam.cam.width,
+                             device=str(slam.map.device))
+    s = config.load_settings(str(cfg_dir / "EuRoC.yaml"))
+    slam = system.System.from_settings(s, system.IMU_STEREO, device=dev)
+    n_pad = int(np.ceil(s.n_features / 128.0)) * 128
+    wired = dict(
+        n_features=slam.tracker.orb_cfg.n_features == n_pad,
+        n_levels=slam.tracker.orb_cfg.n_levels == s.n_levels,
+        scale=abs(slam.tracker.orb_cfg.scale - s.scale_factor) < 1e-9,
+        max_frames=slam.tracker.cfg.max_frames == int(round(s.fps)),
+        map_n_feat=slam.map.cfg.n_feat == n_pad,
+        imu=slam.tracker.imu is not None and abs(
+            slam.tracker.imu.calib.noise_gyro - s.imu_noise_gyro) < 1e-12,
+        ref_ratio=slam.tracker.cfg.ref_ratio == 0.75)
+    rec["from_settings"] = dict(built=built, euroc_imu_stereo=wired)
+    log(f"10d from_settings on the card: {built}; EuRoC IMU_STEREO {wired}")
+    if len(built) != 8 or not all(wired.values()) or any(
+            b["device"] != str(dev) and dev.type == "cuda"
+            for b in built.values()):
+        raise AssertionError(f"10d from_settings: {rec['from_settings']}")
+
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(n_orbit or n)
+    frames = [sr.render_image(cam, planes, R[i], t[i], dev)
+              for i in range(n)]
+    kw = dict(device=dev)
+    if map_cfg is not None:
+        kw["map_cfg"] = map_cfg
+    if track_cfg is not None:
+        kw["tracking_cfg"] = track_cfg
+    slam = system.System(cam, system.MONOCULAR, **kw)
+    for i in range(n):
+        slam.track_monocular(frames[i], 0.05 * i)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "session.zip")
+        slam.save_atlas(path)
+        size = Path(path).stat().st_size
+        slam2 = system.System(cam, system.MONOCULAR, **kw)
+        slam2.load_atlas(path)
+    equal = _atlas_equal(slam.atlas, slam2.atlas)
+    slam2.activate_localization_mode()
+    slam2._build_recognition()
+    for kk in slam2.map.kf_ids():
+        slam2.kfdb.add(kk, slam2.map.kf_feat_desc[kk],
+                       slam2.map.kf_feat_valid[kk])
+    n_kf = slam2.map.n_kf
+    ok = sum(slam2.track_monocular(frames[i], 100.0 + 0.05 * i) is not None
+             for i in range(10, 10 + gates["of"]))
+    rec["atlas"] = dict(keyframes=int(slam.map.n_kf), bytes=size,
+                        arrays_equal=equal, localised=ok, of=gates["of"],
+                        keyframes_frozen=slam2.map.n_kf == n_kf)
+    log(f"10d atlas round trip: {rec['atlas']}")
+    if not (slam.map.n_kf >= 3 and equal and ok >= gates["localised"]
+            and slam2.map.n_kf == n_kf):
+        raise AssertionError(f"10d atlas: {rec['atlas']}")
+
+    builds0 = native.n_builds
+    fresh = system.System(cam, system.MONOCULAR, **kw)
+    t0 = time.perf_counter()
+    fresh.warmup()
+    warm_s = time.perf_counter() - t0
+    untouched = (fresh.map.n_kf == 0
+                 and fresh.get_tracking_state() == tracking.NO_IMAGES_YET)
+    sync = torch_sync(dev)
+    times = []
+    for i in range(12):
+        sync()
+        t1 = time.perf_counter()
+        fresh.track_monocular(frames[i], 0.05 * i)
+        sync()
+        times.append((time.perf_counter() - t1) * 1e3)
+    rec["warmup"] = dict(seconds=warm_s, untouched=untouched,
+                         builds=native.n_builds - builds0,
+                         first_frames_ms=[round(x, 2) for x in times[:5]],
+                         later_frames_ms_median=float(np.median(times[8:])))
+    log(f"10d warmup: {rec['warmup']}")
+    if not untouched or native.n_builds != builds0:
+        raise AssertionError(f"10d warmup: {rec['warmup']}")
+    return rec
+
+
+def phase10_summary(ph10) -> dict:
+    """Phase 10's record for the JSON line (launch counts apart)."""
+    return {name: ({k: v for k, v in r.items() if k != "launches"}
+                   if isinstance(r, dict) else r)
+            for name, r in ph10.items()}
+
+
+def async_phase(dev, sync_rec=None) -> dict:
+    """Phase 10: 10a-10d, each sub-phase's time logged; fails if any
+    background thread raised."""
+    log("phase 10 async mapping: 10a the monocular System with the mapping "
+        "worker (both stream designs), 10b the loop with the racing global "
+        "BA, 10c the racing inertial global BA, 10d settings, atlas "
+        "checkpoints and warmup")
+    THREAD_ERRORS.clear()
+    prev = _watch_threads()
+    out, t = {}, [time.perf_counter()]
+
+    def sub(name):
+        t.append(time.perf_counter())
+        out.setdefault("seconds", {})[name] = t[-1] - t[-2]
+        log(f"{name} took {t[-1] - t[-2]:.1f} s")
+
+    try:
+        out["mono"] = async_mono_path(dev, sync_rec)
+        sub("10a")
+        out["loop"] = async_loop_path(dev)
+        sub("10b")
+        if "9a" not in FINAL_MAPS:
+            raise AssertionError("10c needs 9a's final map: run phase 9a "
+                                 "first")
+        out["inertial_gba"] = inertial_gba_path(dev, FINAL_MAPS["9a"])
+        sub("10c")
+        out["settings"] = settings_path(dev)
+        sub("10d")
+    finally:
+        threading.excepthook = prev
+    if out["inertial_gba"]["failed"]:
+        raise AssertionError(f"10c missed its gates: "
+                             f"{out['inertial_gba']['failed']}")
+    if THREAD_ERRORS:
+        raise AssertionError(f"phase 10: background threads raised: "
+                             f"{THREAD_ERRORS}")
+    return out
+
+
 def main(argv=None) -> int:
-    """argv: optionally ``--phases 3,9`` to run only those of phases 3-9
-    (phases 1 and 2 always run; the last lines then carry what ran)."""
+    """argv: optionally ``--phases 3,9,10`` to run only those of phases 3,
+    9 and 10 (phases 1 and 2 always run; the last lines then carry what
+    ran)."""
     import torch
     argv = sys.argv[1:] if argv is None else argv
     phases = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = {p.strip() for p in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--phases 3,4,...,9]", file=sys.stderr)
+        print("usage: chip_smoke.py [--phases 3,9,10]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3147,9 +3936,10 @@ def main(argv=None) -> int:
 
 
 def run(dev, phases=None) -> int:
-    """Phases 1-9 on the card dev (or 1, 2 and those named in phases);
+    """Phases 1-10 on the card dev (or 1, 2 and those named in phases);
     raises on the first failure."""
     import torch
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -3175,7 +3965,7 @@ def run(dev, phases=None) -> int:
 
     rates = int_rates()
     if phases is not None:
-        return run_some(dev, phases, rates, card)
+        return run_some(dev, phases, rates, card, t_start)
     log("phase 3 kernels against their plain versions")
     log(f"  bounds: HBM {HBM_BYTES_PER_S:.3e} B/s, float32 "
         f"{CUDA_CORE_OPS_PER_S:.3e} op/s; {rates['sms']} SMs at "
@@ -3198,9 +3988,9 @@ def run(dev, phases=None) -> int:
     log("phase 7 System: stereo, RGB-D and fisheye stereo, loop closing off")
     st = stereo_path(dev)
     phase_done("phase 7")
-    log("phase 8a loop: 140 frames around the box world, loop closing and "
-        "global BA")
-    loop = loop_path(dev)
+    log(f"phase 8a loop: the first {LOOP_FEED} of 140 frames around the box "
+        f"world, loop closing and global BA")
+    loop = loop_path(dev, n_feed=LOOP_FEED)
     phase_done("phase 8a")
     log("phase 8b relocalisation after a blackout")
     reloc = reloc_path(dev)
@@ -3210,12 +4000,15 @@ def run(dev, phases=None) -> int:
     phase_done("phase 8c")
     imu = inertial_phase(dev)
     phase_done("phase 9")
+    ph10 = async_phase(dev, sys_rec)
+    phase_done("phase 10")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
              ("relocalisation", reloc), ("merge", merge),
              ("imu_mono", imu["mono"]), ("imu_stereo", imu["stereo"]),
-             ("imu_rgbd", imu["rgbd"]))
+             ("imu_rgbd", imu["rgbd"]), ("async_mono", ph10["mono"]),
+             ("async_loop", ph10["loop"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -3255,11 +4048,13 @@ def run(dev, phases=None) -> int:
               for name, run in imu.items()
               if name in ("mono", "stereo", "rgbd")}
     phase9["jacobian_routes"] = imu["jacobian_routes"]
+    log(f"the whole script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                 for r in rec],
                     "frame": summary, "bootstrap": boot_summary,
                     "system": sys_summary, "stereo": st_summary,
                     "phase8": phase8, "phase9": phase9,
+                    "phase10": phase10_summary(ph10),
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
@@ -3339,9 +4134,10 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
     return rec
 
 
-def run_some(dev, phases, rates, card) -> int:
-    """Only the phases named (3 and 9 take no other phase's results): the
-    launches of the paths that ran, and the last lines as in a whole run."""
+def run_some(dev, phases, rates, card, t_start) -> int:
+    """Only the phases named (3, 9 and 10; 10 runs 9a first for its map and
+    a synchronous run of its own in place of phase 6's): the records of
+    the paths that ran, and the last lines as in a whole run."""
     import torch
     out = {}
     if "3" in phases:
@@ -3349,6 +4145,12 @@ def run_some(dev, phases, rates, card) -> int:
         out["kernels"] = kernel_phase(dev, rates)
     if "9" in phases:
         out["phase9"] = inertial_phase(dev)
+    elif "10" in phases:
+        log("phase 9a (the map that 10c starts from)")
+        inertial_path(dev, "mono")
+    if "10" in phases:
+        out["phase10"] = phase10_summary(async_phase(dev))
+    log(f"the script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({k: (v if k != "phase9" else {
         n: {kk: vv for kk, vv in r.items() if kk != "how"}
         for n, r in v.items()}) for k, v in out.items()}, default=str))

@@ -7,6 +7,12 @@ request they raise: nothing quietly carries on on the CPU.
 Resolving to the card also turns TF32 off for float32 matrix products and
 convolutions: the pyramid's interpolation products and the bundle
 adjustment's Schur products need full float32.
+
+Background threads (the mapping worker, the racing global BA) launch on
+the device's default stream, as tracking does. The card runs the kernels
+of every thread in the order they were queued, so what one thread queued
+before another reads it (the map lock, or the start of a thread, orders
+the two) is written by then: no stream needs a handoff.
 """
 from __future__ import annotations
 

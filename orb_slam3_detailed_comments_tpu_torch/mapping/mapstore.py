@@ -6,9 +6,10 @@ tracking, map initialisation, bundle adjustment and the local mapper use
 culling with tombstones, point fusion, covisibility.
 Host bookkeeping runs on numpy arrays; ``device_points`` and
 ``device_kf_obs`` return tensors on the map's device, cached per
-``version`` (a full upload when the version changed). The native host
-library waits for a later slice: every derived structure here is computed
-by the numpy paths.
+``version`` (a full upload when the version changed). The JAX package's
+native host library (``native/slam_host.cpp``) has no counterpart yet
+(ROADMAP.md item 1.9): every derived structure here is computed by the
+numpy paths.
 
 The inertial block (reference: KeyFrame's mVw / mImuBias /
 mpImuPreintegrated and the mPrevKF chain, include/KeyFrame.h): each

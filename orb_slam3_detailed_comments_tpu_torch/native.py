@@ -7,8 +7,9 @@ at the repository root, which is loaded with ctypes. A library newer than
 every source is reused. Kernels launch on PyTorch's current stream; each C
 entry returns ``cudaGetLastError()``, and ``check`` raises if it is not 0.
 
-``launches`` holds one plain integer per kernel. A wrapper adds one where it
-launches its kernel, and nowhere else; the CPU path never touches it.
+``launches`` holds one count per kernel (``utils.counters.Counts``: safe
+to add to from several threads). A wrapper adds one where it launches its
+kernel, and nowhere else; the CPU path never touches it.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .utils.counters import Counts
+
 REPO_ROOT = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
@@ -27,8 +30,8 @@ SOURCES = ("topk.cu", "patches.cu", "hamming.cu", "frontend.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches = {"cell_topk": 0, "gather_patches": 0, "hamming_best2": 0,
-            "hamming_best2_windowed": 0, "dense_frontend": 0}
+launches = Counts("cell_topk", "gather_patches", "hamming_best2",
+                  "hamming_best2_windowed", "dense_frontend")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -46,11 +49,11 @@ _SIGNATURES = {
 
 _lib = None
 build_log = ""
+n_builds = 0          # nvcc builds run by this process
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    launches.reset()
 
 
 def _nvcc() -> str:
@@ -66,12 +69,13 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> Path:
     """Compile the sources (in parallel) and link the shared library."""
-    global build_log
+    global build_log, n_builds
     srcs = [CSRC / s for s in SOURCES]
     if (not force and LIB_PATH.exists() and LIB_PATH.stat().st_mtime
             >= max(s.stat().st_mtime for s in srcs)):
         return LIB_PATH
     nvcc = _nvcc()
+    n_builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objs = [BUILD_DIR / (s.stem + ".o") for s in srcs]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],

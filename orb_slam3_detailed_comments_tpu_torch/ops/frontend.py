@@ -182,7 +182,7 @@ def dense_frontend_levels(levels):
                   for m in range(4)),
         ctypes.addressof(_TAPS_C), native.stream_ptr(levels[0]))
     native.check(rc, "dense_frontend")
-    native.launches["dense_frontend"] += 1
+    native.launches.bump("dense_frontend")
     return maps
 
 

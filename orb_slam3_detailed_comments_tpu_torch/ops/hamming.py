@@ -183,7 +183,7 @@ def hamming_best2(da, db, vb):
         da.data_ptr(), Q, db.data_ptr(), vb.data_ptr(), K, d1.data_ptr(),
         i1.data_ptr(), d2.data_ptr(), native.stream_ptr(da))
     native.check(rc, "hamming_best2")
-    native.launches["hamming_best2"] += 1
+    native.launches.bump("hamming_best2")
     return d1, i1, d2
 
 
@@ -224,5 +224,5 @@ def hamming_best2_windowed(da, q_uv, q_lv, q_r, q_lo, q_hi, qv,
         db.data_ptr(), t_xy.data_ptr(), t_lv.data_ptr(), tv.data_ptr(), K,
         d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), native.stream_ptr(da))
     native.check(rc, "hamming_best2_windowed")
-    native.launches["hamming_best2_windowed"] += 1
+    native.launches.bump("hamming_best2_windowed")
     return d1, i1, d2

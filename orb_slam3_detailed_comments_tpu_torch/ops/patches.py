@@ -106,7 +106,7 @@ def _launch(images, level, rc: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
         None if level is None else level.data_ptr(), rc.data_ptr(), N, ph,
         pw, out.data_ptr(), native.stream_ptr(images[0]))
     native.check(code, "gather_patches")
-    native.launches["gather_patches"] += 1
+    native.launches.bump("gather_patches")
     return out
 
 

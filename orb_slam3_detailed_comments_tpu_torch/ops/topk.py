@@ -138,7 +138,7 @@ def _launch(maps, contents, margin, k, cell_h, cell_w):
             vals[row0:].data_ptr(), idx[row0:].data_ptr(), k,
             native.stream_ptr(maps[0]))
         native.check(rc, "cell_topk")
-        native.launches["cell_topk"] += 1
+        native.launches.bump("cell_topk")
     return vals, idx
 
 

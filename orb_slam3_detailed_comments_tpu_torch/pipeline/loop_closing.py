@@ -9,19 +9,23 @@ the JAX package; descriptor matching (``hamming_best2`` and
 ``hamming_best2_windowed``), the Sim3 RANSAC and refinement, the pose graph
 and global BA run on the map's device.
 
-On an inertial map whose IMU is initialised (synchronous, as the rest):
-a correction must be near-planar in the gravity-aligned world (the gravity
-gate of CorrectLoop), the essential graph is the 4DoF one (yaw and
-translation) and rotates the keyframes' velocities with their poses, the
-global BA after the correction is the full inertial BA, and a Sim3 whose
-scale strays from 1 is refused (the map is metric).
+On an inertial map whose IMU is initialised: a correction must be
+near-planar in the gravity-aligned world (the gravity gate of
+CorrectLoop), the essential graph is the 4DoF one (yaw and translation)
+and rotates the keyframes' velocities with their poses, the global BA
+after the correction is the full inertial BA, and a Sim3 whose scale
+strays from 1 is refused (the map is metric).
 
-What waits for later slices (``ROADMAP.md``): the global BA that races
-tracking on a thread (``async_gba``, with the async mapping worker, item
-1.4; on inertial maps its worker ``_gba_worker_inertial``) and the sharded
-GBA (item 1.7). Global BA here is the synchronous one: ``gba_rounds``
-bundle adjustments over every keyframe (``ba.ba_solve`` routes them by
-camera count), or one full inertial BA on an inertial map.
+The global BA after a correction runs inline (``gba_rounds`` bundle
+adjustments over every keyframe, ``ba.ba_solve`` routing them by camera
+count, or one full inertial BA), or with ``async_gba`` and a map lock on a
+thread of its own that races tracking and mapping (reference:
+RunGlobalBundleAdjustment's thread and its mbStopGBA abort flag): the
+snapshot is solved in chunks of ``gba_chunk`` iterations with an abort
+check between chunks, and the result is applied under the map lock with
+the drift carried to keyframes and points born during the solve
+(``apply_gba_with_propagation``).
+The sharded global BA (``dist_gba``) waits for ROADMAP item 1.7.
 
 The RANSAC minimal sets are drawn on the host from a generator seeded by
 the keyframe pair and uploaded, so the card and the CPU verify a pair on
@@ -29,6 +33,8 @@ the same sets.
 """
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,25 +42,26 @@ import torch
 
 from .. import device as device_mod
 from ..lie import SE3, Sim3, so3
-from ..mapping.mapstore import MapStore
+from ..mapping.mapstore import NO_POINT, MapStore
 from ..models import cameras
 from ..ops import extractor, matching
-from ..optim import ba, pose_graph
+from ..optim import ba, pose_graph, vi_ba
 from ..placerec import sim3_solver
 from ..placerec.keyframe_db import KeyFrameDatabase
 from ..placerec.pnp import sample_sets
 from ..utils import timing
+from ..utils.counters import Counts
 from . import inertial, kernels
-from .local_mapping import full_obs_cap, run_local_ba
+from .local_mapping import build_ba_problem, full_obs_cap, run_local_ba
 
-ITEM_ASYNC = "1.4"     # ROADMAP.md: the racing global BA (async mapping)
+ITEM_DIST = "1.7"      # ROADMAP.md: the sharded global BA (multi-device)
 
 # descriptor searches issued by place recognition, by caller: each
 # "sim3_match" and "reloc_match" is a mutual match_nn (two hamming_best2
 # launches), each other one search_by_projection (one
 # hamming_best2_windowed launch); the System's relocalisation adds its own
-SEARCHES = dict(sim3_match=0, projection=0, loop_fuse=0, reloc_match=0,
-                reloc_search=0)
+SEARCHES = Counts("sim3_match", "projection", "loop_fuse", "reloc_match",
+                  "reloc_search")
 
 
 @dataclass
@@ -75,7 +82,9 @@ class LoopClosingConfig:
     run_global_ba: bool = True
     gba_iters: int = 10
     gba_rounds: int = 3           # build + solve rounds of the sync GBA
-    async_gba: bool = False       # not ported (ROADMAP item 1.4)
+    async_gba: bool = False       # race the GBA against tracking on a thread
+    gba_chunk: int = 5            # LM iterations between abort checks
+    dist_gba: bool = False        # sharded GBA: not ported (ROADMAP 1.7)
 
 
 @dataclass
@@ -107,10 +116,10 @@ class LoopCloser:
     def __init__(self, mapstore: MapStore, cam: cameras.CameraParams,
                  kfdb: KeyFrameDatabase,
                  cfg: LoopClosingConfig = LoopClosingConfig()):
-        if cfg.async_gba:
+        if cfg.dist_gba:
             raise NotImplementedError(
-                "the racing global BA (async_gba) is not ported to the "
-                f"PyTorch package yet (ROADMAP.md, queue item {ITEM_ASYNC})")
+                "the sharded global BA (dist_gba) is not ported to the "
+                f"PyTorch package yet (ROADMAP.md, queue item {ITEM_DIST})")
         self.map = mapstore
         self.cam = cam
         self.kfdb = kfdb
@@ -121,8 +130,17 @@ class LoopCloser:
         self.n_processed = 0
         self.cooldown_until = 0
         self.n_gba_runs = 0
+        self.n_gba_aborted = 0
         self.n_loops_rejected_gravity = 0
         self.imu_calib = None          # set by the System on inertial sensors
+        # the racing global BA: the map lock it applies under (set by the
+        # System in async mode), its thread, the running thread's abort
+        # flag, and one record per solve (its kind, camera count, seconds
+        # on its thread, outcome)
+        self.map_lock = None
+        self._gba_thread = None
+        self._gba_abort = threading.Event()
+        self.gba_log: list = []
         # what the last correction did: the keyframe count, and the global
         # BA's padded camera count and tier per round
         self.last_correction: dict = {}
@@ -315,8 +333,13 @@ class LoopCloser:
 
         self.last_correction = dict(k=int(k), match_kf=int(match_kf),
                                     n_kf=int(K), gba=[])
-        if (self.cfg.run_global_ba and m.imu_initialized
-                and self.imu_calib is not None):
+        if not self.cfg.run_global_ba:
+            return True
+        window = [int(x) for x in m.kf_ids()]
+        anchor = [match_kf] if match_kf in window else window[:1]
+        if self.cfg.async_gba and self.map_lock is not None:
+            self._launch_global_ba(window, anchor)
+        elif m.imu_initialized and self.imu_calib is not None:
             # FullInertialBA on inertial maps (LoopClosing.cc:2886-2890)
             C = inertial.run_full_inertial_ba(
                 m, self.cam, iters=self.cfg.gba_iters,
@@ -324,9 +347,7 @@ class LoopCloser:
                 calib=self.imu_calib)
             self.last_correction["gba"].append(dict(C=C, tier="inertial"))
             self.n_gba_runs += 1
-        elif self.cfg.run_global_ba:
-            window = [int(x) for x in m.kf_ids()]
-            anchor = [match_kf] if match_kf in window else window[:1]
+        else:
             for _ in range(self.cfg.gba_rounds):
                 C = run_local_ba(m, window, fixed=anchor, cam=self.cam,
                                  iters=self.cfg.gba_iters,
@@ -336,6 +357,123 @@ class LoopCloser:
                     dict(C=C, tier=ba.tier_of(C)))
             self.n_gba_runs += 1
         return True
+
+    # -------------------------------------------------------------- GBA
+    def _launch_global_ba(self, window, anchor):
+        """Snapshot the map into a BA problem (under the caller's map lock)
+        and solve it on a thread that races tracking and mapping; a run
+        still going is aborted first (mbStopGBA). On an initialised
+        inertial map the problem is the full-chain visual-inertial one
+        (FullInertialBA on mpThreadGBA). The reference launches mpThreadGBA
+        from CorrectLoop (LoopClosing.cc:1530-1620)."""
+        self.abort_gba()
+        m = self.map
+        if m.imu_initialized and self.imu_calib is not None:
+            chain = [int(k) for k in m.temporal_chain()]
+            built = inertial.build_full_viba_problem(
+                m, chain, self.imu_calib, max_points=m.cfg.max_pt // 2,
+                max_obs=full_obs_cap(m))
+            target = self._gba_worker_inertial
+        else:
+            built = build_ba_problem(m, window, fixed=anchor,
+                                     max_points=m.cfg.max_pt // 2,
+                                     max_obs=full_obs_cap(m))
+            target = self._gba_worker
+        if built is None:
+            return
+        prob, meta = built
+        # each run reads its own flag: a run that outlived abort_gba's join
+        # still sees its abort after the next launch replaced the flag
+        abort = self._gba_abort = threading.Event()
+        self._gba_thread = threading.Thread(
+            target=self._gba_thread_main,
+            args=(target, m, prob, meta, abort), daemon=True)
+        self._gba_thread.start()
+
+    def _gba_thread_main(self, target, m: MapStore, prob, meta,
+                         abort: threading.Event):
+        """Run one GBA worker and log its camera count, time and
+        outcome."""
+        t0 = time.perf_counter()
+        runs, aborted = self.n_gba_runs, self.n_gba_aborted
+        target(m, prob, meta, abort)
+        self.gba_log.append(dict(
+            kind=("inertial" if target == self._gba_worker_inertial
+                  else "visual"), C=int(meta["n_real"]),
+            seconds=time.perf_counter() - t0,
+            applied=self.n_gba_runs > runs,
+            aborted=self.n_gba_aborted > aborted))
+
+    def _apply_under_lock(self, apply, abort: threading.Event) -> None:
+        """Take the map lock with a timeout, so that an aborter that holds
+        the lock and joins this thread cannot deadlock against it, and
+        apply the result unless the run was aborted meanwhile."""
+        while not self.map_lock.acquire(timeout=0.1):
+            if abort.is_set():
+                self.n_gba_aborted += 1
+                return
+        try:
+            if abort.is_set():
+                self.n_gba_aborted += 1
+                return
+            apply()
+            self.n_gba_runs += 1
+        finally:
+            self.map_lock.release()
+
+    def _gba_worker(self, m: MapStore, prob, meta, abort: threading.Event):
+        """Chunks of ``ba_solve_fused`` with an abort check between them
+        (the reference checks mbStopGBA each iteration; a chunk is the
+        port's grain, and LM restarts its damping each chunk as in the JAX
+        package), then the apply under the map lock."""
+        res = None
+        done = 0
+        td = meta.get("table_depth", 0)
+        while done < self.cfg.gba_iters and not abort.is_set():
+            res = ba.ba_solve_fused(prob, self.cam, iters=self.cfg.gba_chunk,
+                                    table_depth=td)
+            prob = prob._replace(kf_R=res.kf_R, kf_t=res.kf_t,
+                                 points=res.points)
+            done += self.cfg.gba_chunk
+        if res is None or abort.is_set():
+            self.n_gba_aborted += 1
+            return
+        self._apply_under_lock(
+            lambda: apply_gba_with_propagation(m, meta, res), abort)
+
+    def _gba_worker_inertial(self, m: MapStore, prob, meta,
+                             abort: threading.Event):
+        """The same protocol over chunks of the full-chain visual-inertial
+        BA (``vi_ba_solve`` at zero bias priors, as the JAX worker)."""
+        R_cb, t_cb = device_mod.upload_packed(
+            [np.ascontiguousarray(meta["R_bc"].T), meta["t_cb"]], m.device)
+        g = inertial.gravity_vec(m.device)
+        res = None
+        done = 0
+        while done < self.cfg.gba_iters and not abort.is_set():
+            res = vi_ba.vi_ba_solve(prob, self.cam, R_cb, t_cb, g,
+                                    iters=self.cfg.gba_chunk)
+            prob = prob._replace(R_wb=res.R_wb, p_w=res.p_w, v_w=res.v_w,
+                                 bg=res.bg, ba=res.ba, points=res.points)
+            done += self.cfg.gba_chunk
+        if res is None or abort.is_set():
+            self.n_gba_aborted += 1
+            return
+        self._apply_under_lock(
+            lambda: apply_vi_gba_with_propagation(m, meta, res), abort)
+
+    def abort_gba(self):
+        """Stop a running global BA and discard its result (mbStopGBA)."""
+        if self._gba_thread is not None and self._gba_thread.is_alive():
+            self._gba_abort.set()
+            self._gba_thread.join(timeout=120)
+        self._gba_thread = None
+
+    def wait_gba(self):
+        """Block until a running global BA has finished and applied."""
+        if self._gba_thread is not None:
+            self._gba_thread.join(timeout=600)
+            self._gba_thread = None
 
     # ------------------------------------------------------------------
     def _fuse_loop_points(self, k: int, c: int):
@@ -373,7 +511,7 @@ class LoopCloser:
                 proj.uv, proj.visible & ok, pdesc, proj.level,
                 _features(*feat), 6.0, level_lo=-2, level_hi=2,
                 max_dist=matching.TH_LOW, ratio=1.0)
-            SEARCHES["loop_fuse"] += 1
+            SEARCHES.bump("loop_fuse")
             valid, fidx = device_mod.fetch_packed([res.valid, res.idx])
             sel = np.where(valid)[0]
             m.fuse_observations(w, ids[sel], fidx[sel])
@@ -542,7 +680,7 @@ def verify_sim3_pair(mk: MapStore, k: int, mc: MapStore, c: int, cam,
         dev)
     res = matching.match_nn(dk, vk, dc, vc, max_dist=matching.TH_LOW,
                             ratio=0.9, mutual=True)
-    SEARCHES["sim3_match"] += 1
+    SEARCHES.bump("sim3_match")
     valid, idx_c = device_mod.fetch_packed([res.valid, res.idx])
     if valid.sum() < cfg.min_bow_matches:
         return None
@@ -610,7 +748,7 @@ def match_by_projection_pairs(mk: MapStore, k: int, mc: MapStore, c: int,
         uv, vis, desc_d, torch.zeros(P, dtype=torch.int32, device=mk.device),
         _features(*feat), 8.0, level_lo=-8, level_hi=8,
         max_dist=matching.TH_LOW, ratio=1.0)
-    SEARCHES["projection"] += 1
+    SEARCHES.bump("projection")
     valid, fidx = device_mod.fetch_packed([res.valid, res.idx])
     sel = np.where(valid)[0]
     return pts[sel], fidx[sel].astype(np.int64)
@@ -620,3 +758,123 @@ def count_projection_matches(mk: MapStore, k: int, mc: MapStore, c: int,
                              S_kc: Sim3, cam) -> int:
     """Guided-match count through S_kc (reference nProjMatches gate)."""
     return len(match_by_projection_pairs(mk, k, mc, c, S_kc, cam)[0])
+
+
+def _host(parts) -> list:
+    """numpy arrays of tensors (one packed fetch) or of host arrays."""
+    if all(isinstance(p, torch.Tensor) for p in parts):
+        return device_mod.fetch_packed(parts)
+    return [p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+            for p in parts]
+
+
+def apply_vi_gba_with_propagation(m: MapStore, meta: dict, res):
+    """Apply a full-chain inertial GBA result (body states) with the
+    visual path's propagation to late keyframes and points, writing back
+    velocities and biases (reference: the mVwbGBA handling of
+    RunGlobalBundleAdjustment, LoopClosing.cc:2940-3050). Nothing happens
+    on a non-finite solve."""
+    n_real = meta["n_real"]
+    R_wb, p_w, v_w, bg_o, ba_o, points, inl = _host(
+        [res.R_wb, res.p_w, res.v_w, res.bg, res.ba, res.points,
+         res.obs_inlier])
+    if not np.isfinite(p_w[:n_real]).all():
+        return
+    kf_R = np.empty((n_real, 3, 3), np.float32)
+    kf_t = np.empty((n_real, 3), np.float32)
+    for i in range(n_real):
+        kf_R[i], kf_t[i] = inertial.camera_from_body(
+            R_wb[i], p_w[i], meta["R_bc"], meta["t_bc"])
+    apply_gba_with_propagation(
+        m, meta, ba.BAResult(kf_R=kf_R, kf_t=kf_t, points=points,
+                             obs_inlier=inl, cost=None),
+        vi=(v_w[:n_real], bg_o[:n_real], ba_o[:n_real]))
+
+
+def apply_gba_with_propagation(m: MapStore, meta: dict, res, vi=None):
+    """Write a finished global-BA result into a map that kept changing
+    while the solve ran (reference: the correction loop at the end of
+    LoopClosing::RunGlobalBundleAdjustment, LoopClosing.cc:1530-1620).
+
+    Keyframes and points of the snapshot take the solved values. A
+    keyframe born during the solve is corrected through its temporal
+    predecessor (else the nearest corrected keyframe before it), in id
+    order: T_c_new = T_c_bef inv(T_a_bef) T_a_new. A point outside the
+    snapshot rides its reference keyframe: x_new = Twc_ref_new Tcw_ref_bef
+    x. Observations the solve found to be outliers are detached, and a
+    point left with none dies.
+
+    vi: optional (vel, bg, ba) aligned with meta["cams"]: the snapshot's
+    keyframes take them, a late keyframe's world velocity turns with its
+    pose correction."""
+    cams, n_real = meta["cams"], meta["n_real"]
+    pt_ids = np.asarray(meta["pt_ids"])
+    bef_R, bef_t = m.kf_R.copy(), m.kf_t.copy()
+    new_R, new_t = m.kf_R.copy(), m.kf_t.copy()
+    gR, gt, g_points, g_inl = _host([res.kf_R, res.kf_t, res.points,
+                                     res.obs_inlier])
+    gR, gt = gR[:n_real], gt[:n_real]
+    done = np.zeros(m.cfg.max_kf, bool)
+    for i, c in enumerate(cams):
+        if m.kf_valid[c]:
+            new_R[c], new_t[c] = gR[i], gt[i]
+            done[c] = True
+    if not done.any():
+        return
+
+    late = []
+    for c in np.where(m.kf_valid & ~done)[0]:
+        a = int(m.kf_prev[c])
+        if a < 0 or not done[a]:
+            smaller = np.where(done[:c])[0]
+            if len(smaller) == 0:
+                continue
+            a = int(smaller[-1])
+        Rrel = bef_R[c] @ bef_R[a].T
+        trel = bef_t[c] - Rrel @ bef_t[a]
+        new_R[c] = Rrel @ new_R[a]
+        new_t[c] = Rrel @ new_t[a] + trel
+        done[c] = True
+        late.append(c)
+
+    if vi is not None:
+        v_all, bg_all, ba_all = vi
+        for i, c in enumerate(cams):
+            if m.kf_valid[c]:
+                m.kf_vel[c] = v_all[i]
+                m.kf_bg[c] = bg_all[i]
+                m.kf_ba[c] = ba_all[i]
+        for c in late:
+            m.kf_vel[c] = (new_R[c].T @ bef_R[c]) @ m.kf_vel[c]
+
+    alive = m.pt_valid[pt_ids]
+    m.pt_xyz[pt_ids[alive]] = g_points[: len(pt_ids)][alive]
+    others = np.setdiff1d(np.where(m.pt_valid)[0], pt_ids)
+    if len(others):
+        r = m.pt_ref_kf[others]
+        ok = (r >= 0) & done[np.maximum(r, 0)]
+        r = np.maximum(r, 0)
+        xc = np.einsum("nij,nj->ni", bef_R[r], m.pt_xyz[others]) + bef_t[r]
+        xn = np.einsum("nji,nj->ni", new_R[r], xc - new_t[r])
+        m.pt_xyz[others[ok]] = xn[ok]
+
+    m.kf_R[:], m.kf_t[:] = new_R, new_t
+
+    # detach the outlier observations the solve found (Optimizer.cc:2040)
+    inl = g_inl[: len(meta["keep"])]
+    inv_cam = {i: c for c, i in meta["cam_slot"].items()}
+    inv_pt = {i: p for p, i in meta["pt_slot"].items()}
+    touched = set()
+    for o in np.where(~inl)[0]:
+        c = inv_cam[int(meta["oc"][o])]
+        pid = inv_pt[int(meta["op"][o])]
+        m.kf_feat_point[c, m.kf_feat_point[c] == pid] = NO_POINT
+        touched.add(pid)
+    if touched:
+        tl = np.asarray(sorted(touched))
+        tl = tl[m.pt_valid[tl]]
+        if len(tl):
+            obs = m.observation_counts()
+            m.remove_points(tl[obs[tl] == 0])
+    m.version += 1
+    m.big_change_idx += 1

@@ -53,6 +53,7 @@ sync (``optim/pose_opt.py``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -214,6 +215,9 @@ class Tracker:
         self._v_pred_fid = -1
         self.n_inertial_steps = {"anchor": 0, "lf": 0}
         self.n_dead_reckoned = 0
+        # the per-map update lock (reference: mMutexMapUpdate, taken in
+        # Track(), Tracking.cc:2078); the System gives its own in async mode
+        self.map_lock = threading.RLock()
 
     def start_from_map(self, T_cw: SE3, ts: float, last_kf_id: int,
                        velocity: Optional[SE3] = None) -> None:
@@ -330,6 +334,13 @@ class Tracker:
                 self._preintegrate(ts, imu_meas)
         self.last_ts = ts
         self.cur_ts = ts
+        # everything below reads or writes the map: the mapping worker waits
+        # for it (the extraction and the preintegration ran unlocked)
+        with self.map_lock:
+            return self._track_frame_locked(prep, ts, depth, fid)
+
+    def _track_frame_locked(self, prep: kernels.PreparedFrame, ts: float,
+                            depth, fid: int) -> Optional[np.ndarray]:
         if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
             # a map this tracker did not build (a loaded or frozen one):
             # relocalise into it instead of initialising a new one

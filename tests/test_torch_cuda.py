@@ -403,3 +403,38 @@ def test_fused_extractor_launches_each_kernel_once_a_frame(dev, rng):
     torch.cuda.synchronize()
     same = ((f.xy.cpu() == g.xy).all(1) & (f.valid.cpu() == g.valid))
     assert float(same.float().mean()) >= 0.995
+
+
+def test_searches_from_a_worker_thread_on_its_own_stream(dev, rng):
+    """The mapping worker's searches: a loop-fuse-sized windowed search
+    (2048 queries, 1024 targets) and a Sim3 match's hamming_best2 launched
+    from a second thread on a CUDA stream of its own (the wrappers launch
+    on the calling thread's current stream), equal to their plain versions
+    computed on the main thread."""
+    import threading
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = chip_smoke.tie_case(rng, 2048, 1024, f)
+    plain_args = (args[0], args[7], args[10])
+    torch.cuda.synchronize()
+    out = {}
+
+    def work():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            out["stream"] = torch.cuda.current_stream(dev)
+            out["windowed"] = hamming.hamming_best2_windowed(*args)
+            out["best2"] = hamming.hamming_best2(*plain_args)
+            out["stream"].synchronize()
+
+    before = dict(native.launches)
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+    assert out["stream"] != torch.cuda.default_stream(dev)
+    for a, b in zip(out["windowed"],
+                    hamming.hamming_best2_windowed_plain(*args)):
+        _same(a, b)
+    for a, b in zip(out["best2"], hamming.hamming_best2_plain(*plain_args)):
+        _same(a, b)
+    assert native.launches["hamming_best2_windowed"] == \
+        before["hamming_best2_windowed"] + 1
+    assert native.launches["hamming_best2"] == before["hamming_best2"] + 1

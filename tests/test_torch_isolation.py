@@ -1,9 +1,11 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to run on a missing card unless asked for the CPU, and
-its kernel wrappers count only launches on the card.
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+PyYAML or OpenCV, which the card's machine lacks), its entry points refuse
+to run on a missing card unless asked for the CPU, and its kernel wrappers
+count only launches on the card, exactly also when several threads count.
 """
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -35,7 +37,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'orb_slam3_detailed_comments_tpu'"
-        " or k.startswith('orb_slam3_detailed_comments_tpu.')]\n"
+        " or k.startswith('orb_slam3_detailed_comments_tpu.')"
+        " or k in ('yaml', 'cv2')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -97,12 +100,14 @@ def test_every_kernel_source_is_registered():
     "placerec.keyframe_db", "placerec.pnp", "placerec.sim3_solver",
     "optim.pose_graph", "optim.schur_pcg", "pipeline.loop_closing",
     "imu.preintegration", "imu.factors", "imu.inertial_init", "optim.jac",
-    "optim.vi_ba", "pipeline.inertial"])
+    "optim.vi_ba", "pipeline.inertial", "utils.config",
+    "utils.serialization", "utils.verbose", "utils.counters"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"
             "assert 'jax' not in sys.modules\n"
-            "assert 'orb_slam3_detailed_comments_tpu' not in sys.modules\n")
+            "assert 'orb_slam3_detailed_comments_tpu' not in sys.modules\n"
+            "assert 'yaml' not in sys.modules and 'cv2' not in sys.modules\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -129,3 +134,35 @@ def test_resolving_to_the_card_turns_tf32_off(monkeypatch):
     assert device.resolve(None).type == "cuda"
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("which", ["launches", "searches"])
+def test_counters_are_exact_under_threads(which):
+    """8 threads x 10,000 increments of one name each and of one shared
+    name: every count exact (the launch counters and place recognition's
+    search counters are bumped from the tracker, the mapping worker and
+    the global-BA thread)."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    counts = native.launches if which == "launches" else loop_closing.SEARCHES
+    names = list(counts)
+    saved = dict(counts)
+    counts.reset()
+    try:
+        def work(i):
+            for _ in range(10_000):
+                counts.bump(names[0])
+                counts.bump(names[i % len(names)])
+
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        want = {n: 0 for n in names}
+        want[names[0]] += 80_000
+        for i in range(8):
+            want[names[i % len(names)]] += 10_000
+        assert dict(counts) == want
+    finally:
+        counts.update(saved)

@@ -260,15 +260,21 @@ def test_track_stereo_iter_matches_track_stereo(runs, world):
                                     system.IMU_RGBD])
 def test_inertial_sensors_raise(sensor):
     """Since the inertial slice the inertial sensors construct, each with
-    its tracker's IMU state and the local inertial BA hook; only the async
-    mapper still raises, naming its item."""
+    its tracker's IMU state and the local inertial BA hook, and since the
+    ninth slice also with the async mapper; what still raises is the
+    sharded global BA of their loop closer, naming its item."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
     slam = system.System(CAM, sensor, enable_loop_closing=False,
                          device="cpu")
     assert slam.inertial and slam.tracker.imu is not None
     assert slam.local_mapper.inertial_ba is not None
-    with pytest.raises(NotImplementedError, match="item 1.4"):
-        system.System(CAM, sensor, enable_loop_closing=False,
-                      async_mapping=True, device="cpu")
+    am = system.System(CAM, sensor, enable_loop_closing=False,
+                       async_mapping=True, device="cpu")
+    assert am.inertial and am._worker.is_alive()
+    am.shutdown()
+    with pytest.raises(NotImplementedError, match="item 1.7"):
+        loop_closing.LoopCloser(slam.map, CAM, None,
+                                loop_closing.LoopClosingConfig(dist_gba=True))
 
 
 def test_imu_input_raises_on_stereo_and_rgbd(world):
