@@ -70,9 +70,10 @@ Phases, each of which raises on failure:
      matches that differ between card and CPU are named, each with its
      search, projection and Hamming distance;
   7. stereo and RGB-D: System(cam, STEREO, baseline=0.11) and
-     System(cam, RGBD, ...) on the 40-frame orbit of world seed 9, and the
-     two-camera KB8 rig System(kb8, STEREO, camera2=kb8, T_c1c2=...) on 30
-     frames of world seed 17 (the cases of test_pipeline_stereo_rgbd.py and
+     System(cam, RGBD, ...) on the first 30 frames of world seed 9's
+     40-frame orbit, and the two-camera KB8 rig System(kb8, STEREO,
+     camera2=kb8, T_c1c2=...) on the first 20 of world seed 17's (the
+     cases of test_pipeline_stereo_rgbd.py and
      test_fisheye_stereo_end_to_end), each held to its JAX test's gates;
      frame 0's stereo depth against the rendered depth; the launches of
      every kernel checked against the frames (two extractions a stereo
@@ -83,8 +84,8 @@ Phases, each of which raises on failure:
      (chiprun_out/profile_prepare_stereo.txt);
   8. place recognition, at the cases of the JAX package's tests, frames
      ray-cast on the card, every kernel's launches checked against the
-     frames and the searches: (a) the first 60 frames of the 140-frame loop
-     around box world 11 (phase 10b runs all 140 in async mode;
+     frames and the searches: (a) the first 40 frames of the 140-frame loop
+     around box world 11 (phase 10b runs them in async mode;
      test_loop_detected_and_trajectory_consistent's gates; each closure's
      keyframe count and global BA tier; the host clock of detection and
      correction; the first verified detection replayed on the CPU: the
@@ -97,24 +98,25 @@ Phases, each of which raises on failure:
      tangents, written out); (a) System(cam, IMU_MONOCULAR) at its defaults
      on world seed 11's 60 frames of inertial_trajectory
      (test_mono_inertial_end_to_end's and test_gravity_alignment's gates),
-     (b) System(cam, IMU_STEREO, baseline=0.11) on world seed 13's 45
+     (b) System(cam, IMU_STEREO, baseline=0.11) on the first 35 of world
+     seed 13's 45
      (test_stereo_inertial_end_to_end's gates), (c) System(cam, IMU_RGBD)
      on 12 frames of 9b's sequence with exact depth maps (tracked, windows
      preintegrated on the card); each kernel's launches checked; one track_step_inertial_lf and the first IMU initialisation
      replayed on the CPU and compared; the host clock of each IMU
      initialisation stage (with its full inertial BA) and local inertial
-     BA; 3 steady inertial frames profiled on a copy of the tracker
-     (chiprun_out/profile_frames_imu_{mono,stereo}.txt);
+     BA; one steady inertial frame of 9b profiled on a copy of the
+     tracker (chiprun_out/profile_frames_imu_stereo.txt);
  10. the async mapping worker and the racing global BA (every exception a
-     background thread raises fails the phase): (a) phase 6's case with
-     System(cam, MONOCULAR, async_mapping=True), once with the worker and
-     the global-BA thread on CUDA streams of their own and once on the
-     default stream, each held to test_mono_end_to_end's gates with exact
-     launch counts; the host clock of steady and keyframe frames beside
-     phase 6's synchronous ones, the backpressure waits, the device busy
-     share of one profiled steady frame; (b) phase 8a's loop in async
-     mode (test_async_loop_closure_with_racing_gba's gates; each global
-     BA's time on its thread and camera count; the frames that made a
+     background thread raises fails the phase): (a) the first 40 frames of
+     phase 6's case with System(cam, MONOCULAR, async_mapping=True), every
+     thread on the default stream, held to test_mono_end_to_end's gates
+     with exact launch counts; the host clock of steady and keyframe
+     frames beside phase 6's over the same frames, the backpressure waits, the
+     device busy share of one profiled steady frame; (b) the first 40
+     frames of phase 8a's loop in async mode
+     (test_async_loop_closure_with_racing_gba's gates; each global BA's
+     time on its thread and camera count; the frames that made a
      closing keyframe and those tracked while a correction ran; the
      worker's first fuse search and Sim3 match search, on its stream,
      against their plain versions); (c) the racing inertial global BA on a
@@ -123,14 +125,33 @@ Phases, each of which raises on failure:
      checkpoint of a 30-frame run loaded into a fresh System and
      localised against (test_localize_against_loaded_atlas's gates), and
      warmup() with the host clock of the first frames after it.
-  ``--phases 3,9,10`` runs phases 1, 2 and the named ones only (10 with
-  9a first, whose map 10c takes).
+  11. metric and inertial maps, frames ray-cast on the card at fx = fy =
+     400: (a) System(cam, RGBD, baseline=0.11) on world seed 7's 50-frame
+     orbit with exact depth maps, change_dataset(), its last 30 frames
+     again, welded back at fixed scale (test_rgbd_multimap_spawn_and_merge's
+     gates, the weld's scale exactly 1); (b) System(cam, IMU_STEREO,
+     baseline=0.11, enable_loop_closing=True) around the stress box
+     (stress_world(default_rng(29), half=4.0), degraded images) on 160
+     frames of inertial_loop_trajectory's 19.2 s loop: VIBA1, VIBA2, the
+     gravity gate, the 4DoF essential graph and the full inertial BA of
+     each correction (test_fisheye_stereo_inertial_loop_closure's gates on
+     a rectified pinhole pair; at this depth every correction comes before
+     VIBA2, so the yaw-only branch is counted, not required); exact launch
+     counts; each correction's verdict, frames and host clock by part; the
+     first correction on the inertial map (and the first applied there)
+     replayed on the CPU from the map the card saw: the same verdict,
+     poses and velocities within 1e-3 after the graph and after the
+     inertial BA; (c) one visual global BA in ba_solve's COO tier on 11b's
+     final map, card against CPU (its normal equations, cost and inlier
+     verdicts).
+  ``--phases 3,9,10,11`` runs phases 1, 2 and the named ones only (10
+  with 9a first, whose map 10c takes).
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
 "stereo", phase 8's under "phase8", phase 9's under "phase9", phase 10's
-under "phase10"), the card's
+under "phase10", phase 11's under "phase11"), the card's
 name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -138,7 +159,6 @@ there is no CUDA card or the port's package is not beside this script.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import json
@@ -950,6 +970,14 @@ def render_host(cam, planes, R_cw, t_cw, dev):
                                      dev).cpu().numpy()
 
 
+def render_host_depth(cam, planes, R_cw, t_cw, dev):
+    """render_host's image and the exact depth map of the same ray cast
+    (``render_image(with_depth=True)``), both brought to the host."""
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render
+    return tuple(x.cpu().numpy() for x in synth_render.render_image(
+        cam, planes, R_cw, t_cw, dev, with_depth=True))
+
+
 # ---------------------------------------------------------------- phase 4
 # what a tracker carries from frame to frame, besides its map
 TRACKER_STATE = ("last", "velocity", "ref_kf", "last_kf_id",
@@ -1085,7 +1113,7 @@ def main_path(dev, cam_kw=CAM_KW, n_traj=N_TRAJ, kf_every=KF_EVERY,
         restore = lambda i: _restore(tracking, cam, map_cfg, track_cfg,
                                      orb_cfg, dev, snaps[i])
         syncs = count_syncs(restore(probe[0]), imgs, probe[:3])
-        prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:5])
+        prof = profile_frames(lambda: restore(probe[3]), imgs, probe[3:4])
         # the device's busy share of a frame: its kernel time (profiled)
         # over the frame's unprofiled host-clock time
         prof["busy_share"] = prof["device_ms"] / float(np.median(ms))
@@ -1293,7 +1321,7 @@ def bootstrap_path(dev, cam_kw=CAM_KW, n_frames=N_BOOT, map_cfg=None,
         # whole steady frames on either front end, from one tracker state,
         # in turns (xla, fused, fused, xla)
         ab = {"xla": [], "fused": []}
-        ab_frames = [init_at + 8 + j for j in range(4)]
+        ab_frames = [init_at + 8 + j for j in range(2)]
         for fe in ("xla", "fused", "fused", "xla"):
             tka = _restore(tracking, cam, map_cfg, dataclasses.replace(
                 track_cfg, frontend=fe), orb_cfg, dev, snaps[init_at + 8])
@@ -1547,6 +1575,7 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
     ms = np.array([times[i] for i in steady])
     rec.update(frame_ms_median=float(np.median(ms)),
                frame_ms_p90=float(np.percentile(ms, 90)),
+               steady_frame_ms={i: times[i] for i in steady},
                kf_frame_ms={i: times[i] for i in range(n_frames)
                             if how[i].endswith("+kf")},
                events=[{k: v for k, v in ev.items()} for ev in events])
@@ -1612,7 +1641,9 @@ def system_path(dev, cam_kw=CAM_KW, n_frames=N_SYS, world_seed=7,
 # baseline 0.11 m) and RGB-D on world seed 9's 40-frame orbit, a KB8 rig
 # (TUM-VI-like, T_c1c2 = +0.11 m in x) on world seed 17's first 30 frames;
 # ts = 0.05 i, ray-cast frames, loop closing off.
-STEREO_N, FISHEYE_N, BASELINE = 40, 30, 0.11
+# phase 7 feeds the first 30 frames of the JAX tests' 40-frame orbit and
+# the KB8 rig's first 20: the whole script must stay inside its time limit
+STEREO_ORBIT, STEREO_N, FISHEYE_N, BASELINE = 40, 30, 20, 0.11
 KB8_KW = dict(fx=380.0, fy=380.0, cx=376.0, cy=240.0, width=752, height=480,
               k1=0.0034, k2=0.0008, k3=-0.0007, k4=0.0001)
 STEREO_GATES = dict(
@@ -1632,7 +1663,7 @@ SAD_GATHERS = dict(stereo=2, rgbd=0, fisheye=12)
 
 def stereo_path(dev, cam_kw=CAM_KW, kb8_kw=KB8_KW, n_frames=STEREO_N,
                 n_fisheye=FISHEYE_N, map_cfg=None, orb_cfg=None,
-                gates=STEREO_GATES, profile_from=30):
+                gates=STEREO_GATES, profile_from=20):
     """Phase 7: System(cam, STEREO / RGBD, ...) and the two-camera rig on
     the card, each gated as its JAX test is, with every kernel's launches
     checked against its frames' paths and keyframe events; frame 0's
@@ -1656,22 +1687,23 @@ def stereo_path(dev, cam_kw=CAM_KW, kb8_kw=KB8_KW, n_frames=STEREO_N,
     out = {}
     t0 = time.perf_counter()
     planes = sr.default_world(np.random.default_rng(9))
-    R, t = sr.orbit_trajectory(n_frames)
+    R, t = sr.orbit_trajectory(STEREO_ORBIT)
+    R, t = R[:n_frames], t[:n_frames]
     pairs, rgbd = [], []
     for i in range(n_frames):
-        img, X, hit = sr.render_frame_raycast(cam, planes, R[i], t[i])
-        rgbd.append((img, sr.camera_depth(R[i], t[i], X, hit)))
+        img, depth = render_host_depth(cam, planes, R[i], t[i], dev)
+        rgbd.append((img, depth))
         # render_stereo_pair's pair: this left image, the right one cast
         pairs.append((img, render_host(
             cam, planes, R[i], sr.stereo_right_t(R[i], t[i], BASELINE),
             dev)))
     planes_f = sr.default_world(np.random.default_rng(17))
-    Rf, tf = sr.orbit_trajectory(40)
+    Rf, tf = sr.orbit_trajectory(STEREO_ORBIT)
     T_c1c2 = np.eye(4, dtype=np.float32)
     T_c1c2[0, 3] = BASELINE
-    fish = [(sr.render_frame_raycast(kb8, planes_f, Rf[i], tf[i])[0],
-             sr.render_frame_raycast(kb8, planes_f, Rf[i], (
-                 tf[i] - np.array([BASELINE, 0, 0])).astype(np.float32))[0])
+    fish = [(render_host(kb8, planes_f, Rf[i], tf[i], dev),
+             render_host(kb8, planes_f, Rf[i], (
+                 tf[i] - np.array([BASELINE, 0, 0])).astype(np.float32), dev))
             for i in range(n_fisheye)]
     log(f"  rendered {n_frames} stereo pairs with depth maps and "
         f"{n_fisheye} KB8 pairs in {time.perf_counter() - t0:.1f} s")
@@ -2357,46 +2389,69 @@ LOOP_CAM_KW = dict(fx=400.0, fy=400.0, cx=376.0, cy=240.0, width=752,
 MERGE_CAM_KW = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752,
                     height=480)
 LOOP_GATES = dict(tracked=0.7, loops=1, ate_m=0.20, replay_rel=1e-3)
-# phase 8a feeds the first 40 of the loop's 140 frames (two closures): phase
-# 10b runs all 140 in async mode, and the whole script must stay well
-# inside its time limit
+# phases 8a and 10b feed the first 40 of the loop's 140 frames (two
+# closures): the whole script must stay well inside its time limit
 LOOP_FEED = 40
 RELOC_GATES = dict(min_kf=5, matched=15)
 MERGE_GATES = dict(tracked1=0.7, tracked2=0.5, rows=0.7, ate_poses=0.6,
                    ate_m=0.18)
 
 
-def run_system(slam, frames, ts, name, dev):
-    """Feed a System its frames with the counts at 0 just before; returns
-    (poses, launches, expected launches, host ms a frame)."""
+def feed_system(slam, feed, n, dev, extractions=1, sad=0, before=None):
+    """Feed a System n frames (feed(i) tracks frame i) with the counts at 0
+    just before; each frame's host clock, the keyframe events' fuse
+    searches and which frames ran one. before(i) runs ahead of frame i,
+    outside the clock. Returns (poses, times, event_frames, launches,
+    expected launches): extractions and the stereo SAD's one-image
+    gathers a frame as given."""
     from orb_slam3_detailed_comments_tpu_torch import native
     sync = torch_sync(dev)
-    tk = slam.tracker
-    n_fuse0 = [0]
-    process = slam.local_mapper.process_keyframe
+    lm = slam.local_mapper
+    n_fuse, events, frame = [0], [], [0]
+    process = lm.process_keyframe
 
     def counted(k):
         process(k)
-        n_fuse0[0] += slam.local_mapper.last_event.get("fuse_searches", 0)
+        n_fuse[0] += lm.last_event.get("fuse_searches", 0)
+        events.append(frame[0])
 
-    slam.local_mapper.process_keyframe = counted
-    reset_counts()
+    lm.process_keyframe = counted
     poses, times = [], []
-    for img, t in zip(frames, ts):
-        sync()
-        t0 = time.perf_counter()
-        poses.append(slam.track_monocular(img, float(t)))
-        sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(native.launches)
-    slam.local_mapper.process_keyframe = process
-    expect = expected_launches(tk, len(frames), n_fuse0[0])
+    reset_counts()                          # this path's run starts here
+    try:
+        for i in range(n):
+            frame[0] = i
+            if before is not None:
+                before(i)
+            sync()
+            t0 = time.perf_counter()
+            poses.append(feed(i))
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(native.launches)    # ... and ends here
+    finally:
+        lm.process_keyframe = process
+    expect = expected_launches(slam.tracker, n, n_fuse[0], extractions)
+    expect["gather_patches"] += sad * n
+    return poses, times, sorted(set(events)), launches, expect
+
+
+def check_launches(name, launches, expect, dev):
     log(f"{name}: launches {launches} (expected {expect})")
     if dev.type == "cuda":
         for k, want in expect.items():
             if launches[k] != want or want == 0:
                 raise AssertionError(f"{name}: {k}: {launches[k]} launches, "
                                      f"expected {want}")
+
+
+def run_system(slam, frames, ts, name, dev):
+    """Feed a System its frames with the counts at 0 just before; returns
+    (poses, launches, expected launches, host ms a frame)."""
+    poses, times, _, launches, expect = feed_system(
+        slam, lambda i: slam.track_monocular(frames[i], float(ts[i])),
+        len(frames), dev)
+    check_launches(name, launches, expect, dev)
     return poses, launches, expect, times
 
 
@@ -2714,6 +2769,10 @@ IMU_MONO_GATES = dict(tracked=0.7, bg=3e-3, scale=0.12, ate_m=0.06,
                       replay_tol=1e-3)
 IMU_STEREO_GATES = dict(tracked=0.8, bg=8e-3, ate_m=0.05, ate_poses=0.7,
                         replay_match=0.99, replay_tol=1e-3)
+# 9b feeds the first 35 of the JAX test's 45 frames (inertial_trajectory
+# integrates frame by frame: a prefix is the same frames), for the whole
+# script's time
+IMU_STEREO_FEED = 35
 IMU_MONO_BG = np.array([0.003, -0.002, 0.004], np.float32)
 IMU_STEREO_BG = np.array([-0.002, 0.003, 0.001], np.float32)
 
@@ -2879,13 +2938,15 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
     """9a (sensor "mono"): System(cam, IMU_MONOCULAR) at its defaults on
     world seed 11's 60-frame inertial trajectory; 9b (sensor "stereo"):
     System(cam, IMU_STEREO, baseline=0.11, enable_loop_closing=False) on
-    world seed 13's 45 frames. Each held to its JAX tests' gates, every
+    the first 35 of world seed 13's 45 frames (IMU_STEREO_FEED). Each held
+    to its JAX tests' gates, every
     kernel's launches checked against the frames and the searches; the
     first track_step_inertial_lf from replay_from on replayed on the CPU;
     the first successful IMU initialisation replayed on the CPU from the
     map it found; the host clock of the IMU initialisation (with its full
     inertial BA) and of each local inertial BA; on the card the steady
-    inertial frame profile_from profiled on a copy of the tracker."""
+    inertial frame profile_from profiled on a copy of the tracker (none
+    for profile_from=-1)."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch import native
     from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
@@ -2897,7 +2958,7 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
         evaluate_ate, synth_render as sr, timing)
 
     mono = sensor == "mono"
-    n = n_frames or (60 if mono else 45)
+    n = n_frames or (60 if mono else IMU_STEREO_FEED)
     seed = world_seed or (11 if mono else 13)
     gates = gates or (IMU_MONO_GATES if mono else IMU_STEREO_GATES)
     true_bg = IMU_MONO_BG if mono else IMU_STEREO_BG
@@ -3125,7 +3186,7 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
             and ir["scale_diff"] < tol and ir["R_wg_rad"] < tol):
         raise AssertionError(f"{name}: card and CPU part: {sr_}, {ir}")
 
-    if dev.type == "cuda":
+    if prof_tk is not None:
         fixed_key = prof_tk._imu_prior_key
 
         def make():
@@ -3152,10 +3213,10 @@ def inertial_path(dev, sensor="mono", cam_kw=IMU_CAM_KW, n_frames=None,
 THREAD_ERRORS = []
 # 9a's final map, for 10c
 FINAL_MAPS = {}
-# the two stream designs of 10a: the port's (every thread on the device's
-# default stream), and each background thread on a CUDA stream of its own
-ASYNC_MODES = ("shared", "own")
 LOOP_ASYNC_GATES = dict(tracked=0.7, loops=1, gba=1, ate_m=0.30)
+# 10a feeds the first 40 of phase 6's 60 frames, for the whole script's
+# time, and compares with phase 6's record of the same 40 frames
+ASYNC_FEED = 40
 RESUME_GATES = dict(localised=5, of=10)
 
 
@@ -3206,6 +3267,24 @@ def _mono_gates(slam, poses, ts, C, gates):
         ("ATE", not (n_ate > gates["ate_poses"] * n
                      and rmse < gates["ate_m"]))) if bad]
     return rec, fails
+
+
+def time_part(parts, obj, name, label, sync=lambda: None):
+    """Patch obj.name to add its host ms (between sync() calls) to
+    parts[label]; returns the undo."""
+    real = getattr(obj, name)
+
+    def timed(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            sync()
+            parts[label] = parts.get(label, 0.0) + 1e3 * (
+                time.perf_counter() - t0)
+    setattr(obj, name, timed)
+    return lambda: setattr(obj, name, real)
 
 
 def timed_system_run(slam, frames, ts, dev, profile_at=None):
@@ -3264,66 +3343,17 @@ def timed_system_run(slam, frames, ts, dev, profile_at=None):
     return poses, times, kf_frames, steady, launches, n_fuse[0], busy
 
 
-@contextlib.contextmanager
-def stream_design(mode):
-    """The port queues its background threads' kernels on the device's
-    default stream. For the "own" design of 10a's comparison the mapping
-    worker and the global BA's thread run on CUDA streams of their own,
-    patched in for the run, with the handoffs that design needs: the worker
-    finishes its stream before it releases the map lock, and the global
-    BA's thread waits for the whole card (its snapshot was queued on the
-    worker's stream) before it starts, and finishes its stream at its
-    end."""
-    import torch
-    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
-    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
-    if mode != "own":
-        yield
-        return
-    S, L = system.System, loop_closing.LoopCloser
-    real = (S._mapping_worker, S._process_keyframe, L._gba_thread_main)
-
-    def on_own_stream(fn, device_of, wait_card=False):
-        def run(self, *a):
-            dev = device_of(self, *a)
-            if dev.type != "cuda":
-                return fn(self, *a)
-            if wait_card:
-                torch.cuda.synchronize(dev)
-            with torch.cuda.stream(torch.cuda.Stream(dev)):
-                try:
-                    return fn(self, *a)
-                finally:
-                    torch.cuda.current_stream(dev).synchronize()
-        return run
-
-    def process_then_finish(self, *a):
-        out = real[1](self, *a)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return out
-
-    S._mapping_worker = on_own_stream(real[0], lambda s: s.device)
-    S._process_keyframe = process_then_finish
-    L._gba_thread_main = on_own_stream(real[2], lambda s, t, m, *a: m.device,
-                                       wait_card=True)
-    try:
-        yield
-    finally:
-        S._mapping_worker, S._process_keyframe, L._gba_thread_main = real
-
-
 def async_mono_path(dev, sync_rec=None, cam_kw=CAM_KW, n_frames=N_SYS,
                     world_seed=7, map_cfg=None, track_cfg=None,
                     gates=SYS_GATES, profile_at=50):
     """10a: System(cam, MONOCULAR, async_mapping=True) at its defaults on
-    phase 6's case, once with each stream design (every thread on the
-    default stream, the port's; or the worker and the global-BA thread on
-    CUDA streams of their own), each held to test_mono_end_to_end's gates with exact launch
-    counts; the host clock of steady and keyframe frames beside the
-    synchronous System's (phase 6's record of this call, or a synchronous
-    run here when phase 6 did not run); the backpressure waits; the device
-    busy share of one profiled steady frame (all streams)."""
+    the first n_frames of phase 6's case, every thread on the default
+    stream, held to test_mono_end_to_end's gates with exact launch counts;
+    the host clock of steady and keyframe frames beside the synchronous
+    System's over the same frames (phase 6's record of this call, or a
+    synchronous run here when phase 6 did not run); the backpressure
+    waits; the device busy share of one profiled steady frame (all
+    streams)."""
     from orb_slam3_detailed_comments_tpu_torch.models import cameras
     from orb_slam3_detailed_comments_tpu_torch.pipeline import system
     from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
@@ -3340,14 +3370,13 @@ def async_mono_path(dev, sync_rec=None, cam_kw=CAM_KW, n_frames=N_SYS,
     if track_cfg is not None:
         kw["tracking_cfg"] = track_cfg
     out = {}
-    modes = ASYNC_MODES if sync_rec is not None else ("sync",) + ASYNC_MODES
+    modes = ("async",) if sync_rec is not None else ("sync", "async")
     for mode in modes:
-        with stream_design(mode):
-            slam = system.System(cam, system.MONOCULAR,
-                                 async_mapping=mode != "sync", **kw)
-            poses, times, kf_frames, steady, launches, n_fuse, busy = \
-                timed_system_run(slam, frames, ts, dev,
-                                 profile_at if mode != "sync" else None)
+        slam = system.System(cam, system.MONOCULAR,
+                             async_mapping=mode != "sync", **kw)
+        poses, times, kf_frames, steady, launches, n_fuse, busy = \
+            timed_system_run(slam, frames, ts, dev,
+                             profile_at if mode != "sync" else None)
         expect = expected_launches(slam.tracker, n_frames, n_fuse)
         rec, fails = _mono_gates(slam, poses, ts, C, gates)
         st = _stats([times[i] for i in steady])
@@ -3357,6 +3386,7 @@ def async_mono_path(dev, sync_rec=None, cam_kw=CAM_KW, n_frames=N_SYS,
                    n_steady=st["n"], kf_frame_ms_median=kf["median"],
                    kf_frame_ms_p90=kf["p90"], n_kf_frames=kf["n"],
                    kf_frame_ms=[round(times[i], 2) for i in kf_frames],
+                   steady_frame_ms=[round(times[i], 2) for i in steady],
                    backpressure_waits=slam.n_backpressure_waits,
                    loops_closed=slam.loop_closer.n_loops_closed,
                    gba_log=list(slam.loop_closer.gba_log))
@@ -3379,20 +3409,30 @@ def async_mono_path(dev, sync_rec=None, cam_kw=CAM_KW, n_frames=N_SYS,
                 if launches[k] != want or want == 0:
                     raise AssertionError(f"10a {mode}: {k}: {launches[k]} "
                                          f"launches, expected {want}")
-    ref = sync_rec if sync_rec is not None else out.pop("sync")
-    kf_ref = list(ref["kf_frame_ms"].values()) if isinstance(
-        ref["kf_frame_ms"], dict) else ref["kf_frame_ms"]
-    out["sync"] = dict(source="phase 6" if sync_rec is not None else "10a",
-                       frame_ms_median=ref["frame_ms_median"],
-                       frame_ms_p90=ref["frame_ms_p90"],
+    if sync_rec is not None:
+        # phase 6's record over the same frames as this run
+        st_ref = [v for i, v in sync_rec["steady_frame_ms"].items()
+                  if i < n_frames]
+        kf_ref = [v for i, v in sync_rec["kf_frame_ms"].items()
+                  if i < n_frames]
+        source = f"phase 6, its first {n_frames} frames"
+    else:
+        ref = out.pop("sync")
+        st_ref, kf_ref = ref["steady_frame_ms"], ref["kf_frame_ms"]
+        source = "10a"
+    out["sync"] = dict(source=source, n_steady=len(st_ref),
+                       frame_ms_median=float(np.median(st_ref)),
+                       frame_ms_p90=float(np.percentile(st_ref, 90)),
+                       n_kf_frames=len(kf_ref),
                        kf_frame_ms_median=float(np.median(kf_ref)),
                        kf_frame_ms_p90=float(np.percentile(kf_ref, 90)))
     log(f"10a: synchronous ({out['sync']['source']}) steady median "
         f"{out['sync']['frame_ms_median']:.2f} p90 "
-        f"{out['sync']['frame_ms_p90']:.2f} ms, keyframe frames median "
-        f"{out['sync']['kf_frame_ms_median']:.2f} p90 "
-        f"{out['sync']['kf_frame_ms_p90']:.2f} ms")
-    out["launches"] = out["shared"]["launches"]
+        f"{out['sync']['frame_ms_p90']:.2f} ms over {out['sync']['n_steady']}, "
+        f"keyframe frames median {out['sync']['kf_frame_ms_median']:.2f} p90 "
+        f"{out['sync']['kf_frame_ms_p90']:.2f} ms over "
+        f"{out['sync']['n_kf_frames']}")
+    out["launches"] = out["async"]["launches"]
     return out
 
 
@@ -3428,9 +3468,11 @@ def _capture_worker_searches(slam, keep):
 
 
 def async_loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140,
-                    gates=LOOP_ASYNC_GATES, map_cfg=None, track_cfg=None):
+                    gates=LOOP_ASYNC_GATES, map_cfg=None, track_cfg=None,
+                    n_feed=None):
     """10b: phase 8a's loop with async_mapping=True (the worker and the
-    racing global BA on streams of their own):
+    racing global BA on the default stream), its first n_feed frames where
+    given (the gates and the ATE then over those):
     test_async_loop_closure_with_racing_gba's gates (> 70 % tracked, >= 1
     loop, runs + aborts of the global BA >= 1, scale-aligned ATE < 0.30 m,
     a consistent map after shutdown()), exact launch counts; the host clock
@@ -3448,6 +3490,8 @@ def async_loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140,
     cam = cameras.pinhole(**cam_kw)
     walls = sr.box_world(np.random.default_rng(11))
     R, t = sr.loop_trajectory(n_frames, radius=3.0, closes=1.05)
+    n_frames = n_feed or n_frames
+    R, t = R[:n_frames], t[:n_frames]
     frames = [sr.render_image(cam, walls, R[i], t[i], dev)
               for i in range(n_frames)]
     ts = 0.05 * np.arange(n_frames)
@@ -3461,17 +3505,7 @@ def async_loop_path(dev, cam_kw=LOOP_CAM_KW, n_frames=140,
     build = slam._build_recognition
 
     def part(obj, name, label):
-        real = getattr(obj, name)
-
-        def timed(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return real(*a, **k)
-            finally:
-                parts[label] = parts.get(label, 0.0) + 1e3 * (
-                    time.perf_counter() - t0)
-        setattr(obj, name, timed)
-        return lambda: setattr(obj, name, real)
+        return time_part(parts, obj, name, label)
 
     # a correction's parts (module functions, patched for this run)
     undo_parts = [part(loop_closing, "_chain_covis_edges", "edges"),
@@ -3856,18 +3890,19 @@ def settings_path(dev, cam_kw=CAM_KW, n=30, world_seed=7,
     return rec
 
 
-def phase10_summary(ph10) -> dict:
-    """Phase 10's record for the JSON line (launch counts apart)."""
+def phase_summary(ph) -> dict:
+    """Phase 10's or 11's record for the JSON line (launch counts
+    apart)."""
     return {name: ({k: v for k, v in r.items() if k != "launches"}
                    if isinstance(r, dict) else r)
-            for name, r in ph10.items()}
+            for name, r in ph.items()}
 
 
 def async_phase(dev, sync_rec=None) -> dict:
     """Phase 10: 10a-10d, each sub-phase's time logged; fails if any
     background thread raised."""
     log("phase 10 async mapping: 10a the monocular System with the mapping "
-        "worker (both stream designs), 10b the loop with the racing global "
+        "worker, 10b the loop with the racing global "
         "BA, 10c the racing inertial global BA, 10d settings, atlas "
         "checkpoints and warmup")
     THREAD_ERRORS.clear()
@@ -3880,9 +3915,10 @@ def async_phase(dev, sync_rec=None) -> dict:
         log(f"{name} took {t[-1] - t[-2]:.1f} s")
 
     try:
-        out["mono"] = async_mono_path(dev, sync_rec)
+        out["mono"] = async_mono_path(dev, sync_rec, n_frames=ASYNC_FEED,
+                                      profile_at=ASYNC_FEED - 10)
         sub("10a")
-        out["loop"] = async_loop_path(dev)
+        out["loop"] = async_loop_path(dev, n_feed=LOOP_FEED)
         sub("10b")
         if "9a" not in FINAL_MAPS:
             raise AssertionError("10c needs 9a's final map: run phase 9a "
@@ -3902,9 +3938,589 @@ def async_phase(dev, sync_rec=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# loop closing and merging on metric and inertial maps: 11a the RGB-D
+# two-session merge at fixed scale (test_pipeline_metric_loops.py's
+# test_rgbd_multimap_spawn_and_merge), 11b a stereo-inertial loop through
+# VIBA2, the gravity gate, the 4DoF essential graph and the full inertial
+# BA (test_pipeline_fisheye.py's test_fisheye_stereo_inertial_loop_closure
+# with a rectified pinhole pair in place of the KB8 one: the KB8 frame
+# program costs ~0.8 s a frame on the card's host)
+METRIC_CAM_KW = LOOP_CAM_KW
+RGBD_MERGE_GATES = dict(tracked1=0.7, tracked2=0.5, rows=0.7, ate_poses=0.6,
+                        ate_m=0.12, scale=0.02)
+VI_LOOP_GATES = dict(tracked=0.8, bg=8e-3, ate_m=0.25, ate_poses=0.7,
+                     scale=0.06, replay_tol=1e-3)
+VI_LOOP_BG = np.array([-0.002, 0.003, 0.001], np.float32)
+# 11b's depth: the trajectory keeps its 19.2 s (VIBA2 runs 15 s after the
+# IMU initialisation) at 160 frames of 24 IMU samples, the first setting
+# on which the JAX package holds every gate of the case on the CPU
+# (tests/test_torch_inertial_loops.py's slow reference)
+VI_LOOP_FRAMES, VI_LOOP_IMU = 160, 24
+
+
+def stress_world(rng, half=8.0):
+    """tests/test_pipeline_stress.py's box world with one low-texture wall
+    (350 blobs against 4000), from the port's _texture and Plane: the same
+    textures from the same rng. half: the box's half-extent."""
+    from orb_slam3_detailed_comments_tpu_torch.utils.synth_render import (
+        Plane, _texture)
+    tex = 1400
+    ppm = tex / (2 * half)
+    e_y = np.array([0, 1 / ppm, 0.0])
+    blobs = [4000, 4000, 350, 4000]
+    origins = [np.array([-half, -half, half]), np.array([half, -half, half]),
+               np.array([half, -half, -half]),
+               np.array([-half, -half, -half])]
+    e1s = [np.array([1 / ppm, 0, 0]), np.array([0, 0, -1 / ppm]),
+           np.array([-1 / ppm, 0, 0]), np.array([0, 0, 1 / ppm])]
+    return [Plane(o, e1, e_y, _texture(rng, tex, n_blobs=nb))
+            for o, e1, nb in zip(origins, e1s, blobs)]
+
+
+def box_blur_9x1(img):
+    """cv2.blur(img, (9, 1)) without OpenCV: the mean of 9 horizontal
+    neighbours, the border reflected without repeating the edge pixel
+    (cv2's default, BORDER_REFLECT_101); float64 sums, float32 out."""
+    W = img.shape[1]
+    p = np.pad(np.asarray(img, np.float64), ((0, 0), (4, 4)), mode="reflect")
+    return (sum(p[:, j:j + W] for j in range(9)) / 9.0).astype(np.float32)
+
+
+def degrade(img, i, n):
+    """tests/test_pipeline_stress.py's degradations of frame i of n:
+    exposure steps, a horizontal motion-blur burst, a moving occluder."""
+    u = i / n
+    if 0.18 < u < 0.30:
+        img = img * 0.55
+    elif 0.70 < u < 0.80:
+        img = np.clip(img * 1.5 + 30.0, 0, 255)
+    if 0.38 < u < 0.46:
+        img = box_blur_9x1(img)
+    if 0.86 < u < 0.94:
+        h, w = img.shape
+        ow, oh = w // 4, h // 3
+        x = int((w - ow) * (0.5 + 0.5 * np.sin(i * 0.7)))
+        y = int((h - oh) * (0.5 + 0.5 * np.cos(i * 0.5)))
+        img = img.copy()
+        img[y:y + oh, x:x + ow] = 70.0 + 10.0 * np.sin(i)
+    return img
+
+
+def rgbd_merge_path(dev, cam_kw=METRIC_CAM_KW, n=50, n2=30, world_seed=7,
+                    gates=RGBD_MERGE_GATES, map_cfg=None, track_cfg=None,
+                    orb_cfg=None):
+    """11a: System(cam, RGBD, baseline=0.11) on world seed 7's n-frame
+    orbit with exact depth maps (ray-cast on dev), change_dataset(), the last n2 frames again
+    at ts + 10 s: test_rgbd_multimap_spawn_and_merge's gates (> 70 % and
+    > 50 % tracked, 1 map after the first session, 2 at the end with the
+    second active, >= 1 merge, fix_scale, > 70 % rows, joint metric ATE
+    below 0.12 m over > 60 % of n + n2 poses, Horn scale within 0.02 of 1)
+    and a weld at scale exactly 1; exact launch counts."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        loop_closing, system)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(n)
+    t0 = time.perf_counter()
+    frames = [render_host_depth(cam, planes, R[i], t[i], dev)
+              for i in range(n)]
+    log(f"  rendered {n} frames with depth maps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ts = 0.05 * np.arange(n)
+    ts2 = ts[-n2:] + 10.0
+    kw = dict(device=dev)
+    for key, val in (("map_cfg", map_cfg), ("tracking_cfg", track_cfg),
+                     ("orb_cfg", orb_cfg)):
+        if val is not None:
+            kw[key] = val
+    slam = system.System(cam, system.RGBD, baseline=BASELINE, **kw)
+    welds, maps_after_1 = [], []
+    merge = slam.atlas.merge_map_into_active
+
+    def logged_merge(mid, S):
+        welds.append(dict(map=int(mid), scale=loop_closing.sim3_np(S)[2]))
+        return merge(mid, S)
+
+    slam.atlas.merge_map_into_active = logged_merge
+    order = list(range(n)) + list(range(n - n2, n))
+    stamps = np.concatenate([ts, ts2])
+
+    def before(j):
+        if j == n:
+            maps_after_1.append(len(slam.atlas.maps))
+            slam.change_dataset()
+
+    poses, times, _, launches, expect = feed_system(
+        slam, lambda j: slam.track_rgbd(*frames[order[j]], float(stamps[j])),
+        n + n2, dev, before=before)
+    check_launches("11a RGB-D merge", launches, expect, dev)
+    ok1 = sum(p is not None for p in poses[:n])
+    ok2 = sum(p is not None for p in poses[n:])
+    rows = slam.trajectory_tum()
+    gt = sr.camera_centers(R, t)
+    gt_all = np.concatenate([gt, gt[-n2:]])
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    rmse, npairs, _ = evaluate_ate.ate_rmse(stamps, gt_all, est_ts, est,
+                                            with_scale=False)
+    _, _, scale = evaluate_ate.ate_rmse(stamps, gt_all, est_ts, est,
+                                        with_scale=True)
+    lc = slam.loop_closer
+    rec = dict(tracked1=ok1, tracked2=ok2, maps_after_1=maps_after_1[0],
+               maps=len(slam.atlas.maps), active=slam.atlas.active_id,
+               merges=slam.atlas.n_merges, welds=welds,
+               fix_scale=bool(lc is not None and lc.cfg.fix_scale),
+               rows=len(rows), ate_m=rmse, ate_poses=npairs, scale=scale,
+               consistency=slam.check_map_consistency(), launches=launches,
+               frame_ms=_stats(times))
+    log(f"11a RGB-D merge: {ok1}/{n} then {ok2}/{n2} frames tracked; "
+        f"{rec['maps_after_1']} map(s) after the first session, "
+        f"{rec['maps']} at the end, active {rec['active']}, {rec['merges']} "
+        f"merges, welds {welds}, fix_scale {rec['fix_scale']}; "
+        f"{len(rows)} rows; joint metric ATE {rmse:.5f} m over {npairs} "
+        f"poses, Horn scale {scale:.5f}; consistency {rec['consistency']}; "
+        f"frames {rec['frame_ms']}")
+    fails = [name for name, bad in (
+        ("first session", ok1 <= gates["tracked1"] * n),
+        ("one map after it", rec["maps_after_1"] != 1),
+        ("second session", ok2 <= gates["tracked2"] * n2),
+        ("maps", rec["maps"] != 2 or rec["active"] != 1),
+        ("merges", rec["merges"] < 1),
+        ("fix_scale", not rec["fix_scale"]),
+        ("weld scale", not welds or any(w["scale"] != 1.0 for w in welds)),
+        ("rows", len(rows) <= gates["rows"] * (n + n2)),
+        ("ATE", not (npairs > gates["ate_poses"] * (n + n2)
+                     and rmse < gates["ate_m"])),
+        ("scale", not abs(scale - 1.0) < gates["scale"])) if bad]
+    if fails:
+        raise AssertionError(f"11a missed the gates: {fails}: {rec}")
+    return rec
+
+
+def _kf_state(m, fields=("kf_R", "kf_t", "kf_vel")):
+    kfs = m.kf_ids()
+    return {f: getattr(m, f)[kfs].copy() for f in fields}
+
+
+def _state_diff(a, b):
+    return {f: float(np.abs(a[f] - b[f]).max()) for f in a}
+
+
+INERTIAL_STATE = ("kf_R", "kf_t", "kf_vel", "kf_bg", "kf_ba")
+
+
+def vi_correction_replay(snap, tol):
+    """One _correct_loop of 11b once more on the CPU, from the map the card
+    saw just before it and with the same Sim3: the gate's decision, the
+    keyframe poses and velocities after the 4DoF graph and after the full
+    inertial BA against the card's (largest differences)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    m = MapStore.from_numpy(snap["map"], snap["map_cfg"],
+                            device=torch.device("cpu"))
+    lc = loop_closing.LoopCloser(m, snap["cam"], None, snap["cfg"])
+    lc.imu_calib = snap["calib"]
+    graph = {}
+    apply = loop_closing._apply_pose_graph
+
+    def kept(*a, **k):
+        apply(*a, **k)
+        graph.update(_kf_state(m))
+
+    loop_closing._apply_pose_graph = kept
+    try:
+        t0 = time.perf_counter()
+        closed = lc._correct_loop(snap["k"], snap["c"],
+                                  loop_closing.host_sim3(*snap["S"]))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        loop_closing._apply_pose_graph = apply
+    out = dict(k=snap["k"], c=snap["c"], card_closed=snap["closed"],
+               cpu_closed=bool(closed), cpu_ms=cpu_ms)
+    if closed and snap["closed"]:
+        out["after_graph"] = _state_diff(graph, snap["graph"])
+        out["after_inertial_ba"] = _state_diff(
+            _kf_state(m, INERTIAL_STATE), snap["final"])
+    out["ok"] = (out["cpu_closed"] == out["card_closed"] and all(
+        v < tol for part in ("after_graph", "after_inertial_ba")
+        for v in out.get(part, {}).values()))
+    return out
+
+
+def vi_loop_path(dev, cam_kw=METRIC_CAM_KW, n=VI_LOOP_FRAMES,
+                 imu_per_frame=VI_LOOP_IMU, world_seed=29,
+                 gates=VI_LOOP_GATES, map_cfg=None, track_cfg=None,
+                 orb_cfg=None):
+    """11b: System(cam, IMU_STEREO, baseline=0.11, enable_loop_closing=
+    True) around stress_world(default_rng(29), half=4.0) on
+    inertial_loop_trajectory(n, imu_per_frame, true_bg=VI_LOOP_BG), both
+    images degraded: the fisheye loop test's gates (> 80 % tracked, 1 map,
+    the IMU initialised, VIBA1 and VIBA2 done, fix_scale, >= 1 loop closed,
+    the newest chain keyframe's gyro bias within 8e-3, metric ATE below
+    0.25 m over > 70 % of the frames, Horn scale within 0.06 of 1, a
+    consistent map), exact launch counts; each correction's gate verdict,
+    yaw-only branch and host clock by part (gate and set-up, graph, fuse,
+    point stats, full inertial BA with its C, or the visual global BA
+    before the IMU initialisation); the first correction on the
+    inertial map, and the first one applied there, replayed on the CPU."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        inertial, loop_closing, system)
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        evaluate_ate, synth_render as sr)
+    cam = cameras.pinhole(**cam_kw)
+    walls = stress_world(np.random.default_rng(world_seed), half=4.0)
+    traj = sr.inertial_loop_trajectory(n, imu_per_frame=imu_per_frame,
+                                       true_bg=VI_LOOP_BG)
+    t0 = time.perf_counter()
+    pairs = []
+    for i in range(n):
+        R, t = traj["R_cw"][i], traj["t_cw"][i]
+        pairs.append((degrade(render_host(cam, walls, R, t, dev), i, n),
+                      degrade(render_host(cam, walls, R, sr.stereo_right_t(
+                          R, t, BASELINE), dev), i, n)))
+    log(f"  rendered and degraded {n} pairs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(device=dev)
+    for key, val in (("map_cfg", map_cfg), ("tracking_cfg", track_cfg),
+                     ("orb_cfg", orb_cfg)):
+        if val is not None:
+            kw[key] = val
+    slam = system.System(cam, system.IMU_STEREO, baseline=BASELINE,
+                         enable_loop_closing=True, **kw)
+    sync = torch_sync(dev)
+    frame, parts, corrections, snaps = [0], {}, [], {}
+
+    def part(obj, name, label):
+        return time_part(parts, obj, name, label, sync)
+
+    graph = {}
+
+    def timing_patches(lc, m):
+        """The correction's parts timed, the poses after the graph kept:
+        patched for one correction only; returns the undo."""
+        undo = [part(loop_closing, "_chain_covis_edges", "graph"),
+                part(loop_closing, "_solve_essential_graph", "graph"),
+                part(loop_closing, "_apply_pose_graph", "graph"),
+                part(inertial, "run_full_inertial_ba", "full inertial BA"),
+                part(loop_closing, "run_local_ba", "global BA"),
+                part(lc, "_fuse_loop_points", "fuse"),
+                part(m, "update_point_stats", "point stats")]
+        apply_timed = loop_closing._apply_pose_graph
+
+        def apply_kept(m_, *a, **k):
+            apply_timed(m_, *a, **k)
+            graph.update(_kf_state(m_))
+
+        loop_closing._apply_pose_graph = apply_kept
+
+        def restore():
+            loop_closing._apply_pose_graph = apply_timed
+            for u in reversed(undo):
+                u()
+        return restore
+
+    build = slam._build_recognition
+
+    def build_hooked(*a, **k):
+        build(*a, **k)
+        lc = slam.loop_closer
+        correct = lc._correct_loop
+
+        def logged(k_, c, S):
+            m = lc.map
+            inertial_map = bool(m.imu_initialized)
+            snap = None
+            if inertial_map and ("first" not in snaps
+                                 or "applied" not in snaps):
+                snap = dict(map=map_arrays(m),
+                            map_cfg=dataclasses.replace(m.cfg), cam=cam,
+                            cfg=dataclasses.replace(lc.cfg),
+                            calib=lc.imu_calib, k=int(k_), c=int(c),
+                            S=loop_closing.sim3_np(S))
+            parts.clear()
+            graph.clear()
+            gba0 = lc.n_gba_runs
+            restore = timing_patches(lc, m)
+            sync()
+            t1 = time.perf_counter()
+            try:
+                out = correct(k_, c, S)
+                sync()
+            finally:
+                restore()
+            ms = (time.perf_counter() - t1) * 1e3
+            rec = dict(k=int(k_), c=int(c), frame=frame[0],
+                       match_frame=int(m.kf_frame_id[c]),
+                       inertial=inertial_map,
+                       yaw_only=inertial_map and bool(m.imu_ba2),
+                       closed=bool(out), n_kf=int(m.n_kf), ms=ms,
+                       parts_ms={key: round(v, 1) for key, v in parts.items()})
+            rec["parts_ms"]["gate and set-up"] = round(
+                ms - sum(parts.values()), 1)
+            if lc.n_gba_runs > gba0:
+                rec["gba"] = list(lc.last_correction.get("gba", []))
+            corrections.append(rec)
+            if snap is not None:
+                snap.update(closed=bool(out), graph=dict(graph),
+                            final=_kf_state(m, INERTIAL_STATE))
+                snaps.setdefault("first", snap)
+                if out:
+                    snaps.setdefault("applied", snap)
+            return out
+        lc._correct_loop = logged
+
+    slam._build_recognition = build_hooked
+    ts = traj["ts"]
+
+    def before(i):
+        frame[0] = i
+
+    poses, times, events, launches, expect = feed_system(
+        slam, lambda i: slam.track_stereo(*pairs[i], float(ts[i]),
+                                          imu=traj["windows"][i]),
+        n, dev, extractions=2, sad=2, before=before)
+    check_launches("11b stereo-inertial loop", launches, expect, dev)
+    m, lc = slam.map, slam.loop_closer
+    chain = m.temporal_chain()
+    bg = m.kf_bg[chain[-1]]
+    rows = slam.trajectory_tum()
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    rmse, npair, _ = evaluate_ate.ate_rmse(ts, traj["centers"], est_ts, est,
+                                           with_scale=False)
+    _, _, scale = evaluate_ate.ate_rmse(ts, traj["centers"], est_ts, est,
+                                        with_scale=True)
+    closing = {c["frame"] for c in corrections}
+    steady = [times[i] for i in range(n)
+              if poses[i] is not None and i not in events and i not in closing]
+    rec = dict(tracked=sum(p is not None for p in poses), n_frames=n,
+               imu_per_frame=imu_per_frame, maps=len(slam.atlas.maps),
+               keyframes=slam.n_keyframes,
+               imu_initialized=bool(m.imu_initialized),
+               imu_ba1=bool(m.imu_ba1), imu_ba2=bool(m.imu_ba2),
+               imu_events=slam.imu_events, fix_scale=bool(lc.cfg.fix_scale),
+               loops_closed=lc.n_loops_closed,
+               rejected_gravity=lc.n_loops_rejected_gravity,
+               rejected_projgate=lc.n_loops_rejected_projgate,
+               corrections=corrections, bg=bg.tolist(),
+               bg_err=float(np.abs(bg - VI_LOOP_BG).max()), ate_m=rmse,
+               ate_poses=npair, scale=scale,
+               consistency=slam.check_map_consistency(), launches=launches,
+               steady=_stats(steady), closing_frame_ms=[
+                   times[c["frame"]] for c in corrections])
+    log(f"11b stereo-inertial loop: {rec['tracked']}/{n} frames tracked, "
+        f"{rec['maps']} map(s), {slam.n_keyframes} KF; IMU initialised "
+        f"{rec['imu_initialized']}, VIBA1 {rec['imu_ba1']}, VIBA2 "
+        f"{rec['imu_ba2']} (stages {slam.imu_events}); fix_scale "
+        f"{rec['fix_scale']}; {lc.n_loops_closed} loops closed, "
+        f"{lc.n_loops_rejected_gravity} refused by the gravity gate, "
+        f"{lc.n_loops_rejected_projgate} at the projection gate; "
+        f"corrections {corrections}; the frames that made them "
+        f"{[round(x, 1) for x in rec['closing_frame_ms']]} ms; bg "
+        f"{np.round(bg, 5).tolist()} (error {rec['bg_err']:.5f}); metric "
+        f"ATE {rmse:.5f} m over {npair}, Horn scale {scale:.5f}; "
+        f"consistency {rec['consistency']}; steady frames {rec['steady']}")
+    fails = [name for name, bad in (
+        ("frames tracked", rec["tracked"] <= gates["tracked"] * n),
+        ("one map", rec["maps"] != 1),
+        ("IMU initialised", not rec["imu_initialized"]),
+        ("VIBA1 and VIBA2", not (rec["imu_ba1"] and rec["imu_ba2"])),
+        ("fix_scale", not rec["fix_scale"]),
+        ("loops closed", rec["loops_closed"] < 1),
+        ("gyro bias", not rec["bg_err"] < gates["bg"]),
+        ("ATE", not (npair > gates["ate_poses"] * n
+                     and rmse < gates["ate_m"])),
+        ("scale", not abs(scale - 1.0) < gates["scale"]),
+        ("map consistency", rec["consistency"] != [])) if bad]
+    if fails:
+        raise AssertionError(f"11b missed the gates: {fails}: "
+                             f"{ {k: v for k, v in rec.items() if k != 'launches'} }")
+    # what the gates do not require: a correction after VIBA2 (the
+    # yaw-only branch) and a loop across the revisit (its match keyframe
+    # made in the first half of the sequence, its closing one in the last)
+    rec["yaw_only_corrections"] = sum(c["yaw_only"] and c["closed"]
+                                      for c in corrections)
+    rec["revisit_loops"] = sum(c["closed"] and c["match_frame"] < n // 2
+                               <= c["frame"] for c in corrections)
+    log(f"11b: {rec['yaw_only_corrections']} corrections after VIBA2 (the "
+        f"yaw-only branch), {rec['revisit_loops']} loops across the revisit; "
+        f"frames of each loop (closing <- match): "
+        f"{[(c['frame'], c['match_frame']) for c in corrections]}")
+    FINAL_MAPS["11b"] = dict(map=map_arrays(m), map_cfg=dataclasses.replace(
+        m.cfg), cam=cam)
+    if "first" not in snaps:
+        raise AssertionError("11b: no correction on the inertial map to "
+                             "replay")
+    rec["replay"] = []
+    for key in ("first", "applied"):
+        if key == "applied" and snaps.get("applied") is snaps["first"]:
+            continue
+        if key in snaps:
+            r = vi_correction_replay(snaps[key], gates["replay_tol"])
+            rec["replay"].append(r)
+            log(f"11b replay of the {key} inertial correction on the CPU: "
+                f"{r}")
+            if not r["ok"]:
+                raise AssertionError(f"11b: card and CPU part: {r}")
+    if not any(r["cpu_closed"] for r in rec["replay"]):
+        raise AssertionError("11b: no applied correction on the inertial map "
+                             "to replay")
+    return rec
+
+
+# 11c: the COO tier's normal equations on the card within this of the
+# CPU's (relative to each block's largest entry) at the same state; after
+# the solve, the card's robust cost at most COO_GBA_COST x the CPU's and at
+# most COO_GBA_INLIER_SHARE of the observations with another inlier
+# verdict. The solved states themselves are logged beside the CPU's own
+# spread under a 1e-7 m nudge of the points, not gated: on this map a
+# nudge at float32's rounding moves the solve by centimetres (in the JAX
+# package too), so no device can match another pointwise
+COO_GBA_ASSEMBLY_TOL = 1e-4
+COO_GBA_COST = 1.05
+COO_GBA_INLIER_SHARE = 1e-3
+COO_GBA_NUDGE = 1e-7
+
+
+def coo_gba_path(dev, snap):
+    """11c: one round of the visual global BA that LoopCloser._correct_loop
+    runs on a visual map (local_mapping.build_ba_problem over every
+    keyframe, anchored at the first, then ba.ba_solve at gba_iters) on
+    copies of 11b's final map, on the card and on the CPU. Its keyframes
+    (more than 48) put the solve in ba_solve's COO tier (48 < C <= 128),
+    which no other phase reaches: 8a's, 10b's and 11b's global BAs stay at
+    C <= 48 at their depths. Gates: the tier is "coo" and _ba_solve_coo ran
+    once on each device; the tier's normal equations at the map's state
+    (ba.coo_normal_equations) on the card within COO_GBA_ASSEMBLY_TOL of
+    the CPU's; every state finite and the robust cost over all
+    observations down on each device, the card's final cost at most
+    COO_GBA_COST x the CPU's, at most COO_GBA_INLIER_SHARE of the
+    observations with another inlier verdict. Logged: the states' largest
+    differences, beside those between the CPU's solve and its solve of
+    the points nudged by N(0, COO_GBA_NUDGE) m; each solve's host
+    clock."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.optim import ba, reproj
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        local_mapping, loop_closing)
+    cam = snap["cam"]
+    iters = loop_closing.LoopClosingConfig().gba_iters
+    coo, calls = ba._ba_solve_coo, []
+
+    def counted(prob, *a, **k):
+        calls.append(prob.points.device.type)
+        return coo(prob, *a, **k)
+
+    def cost(prob, R, t, X):
+        return float(ba._coo_robust_cost(prob, cam, R, t, X, prob.obs_valid,
+                                         reproj.CHI2_MONO))
+
+    def solve(prob, meta, d):
+        sync = torch_sync(d)
+        sync()
+        t0 = time.perf_counter()
+        r = ba.ba_solve(prob, cam, iters=iters,
+                        table_depth=meta["table_depth"])
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms, [x.cpu().numpy() for x in (r.kf_R, r.kf_t, r.points,
+                                                 r.obs_inlier)]
+
+    def diff(a, b):
+        return dict(kf_R=float(np.abs(a[0] - b[0]).max()),
+                    kf_t=float(np.abs(a[1] - b[1]).max()),
+                    points=float(np.abs(a[2] - b[2]).max()),
+                    inlier_share=float((a[3] != b[3])[valid].mean()))
+
+    rec, res, eqs = {}, {}, {}
+    ba._ba_solve_coo = counted
+    try:
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = MapStore.from_numpy(snap["map"], snap["map_cfg"], device=d)
+            window = [int(k) for k in m.kf_ids()]
+            prob, meta = local_mapping.build_ba_problem(
+                m, window, fixed=window[:1], max_points=m.cfg.max_pt // 2,
+                max_obs=local_mapping.full_obs_cap(m))
+            C = int(prob.kf_R.shape[0])
+            eqs[where] = [x.cpu().double().numpy()
+                          for x in ba.coo_normal_equations(
+                              prob, cam, prob.kf_R, prob.kf_t, prob.points,
+                              prob.obs_valid, reproj.CHI2_MONO)]
+            before = cost(prob, prob.kf_R, prob.kf_t, prob.points)
+            r, ms, res[where] = solve(prob, meta, d)
+            rec[where] = dict(
+                C=C, cameras=int(meta["n_real"]), tier=ba.tier_of(C),
+                observations=int(prob.obs_valid.sum()), ms=ms,
+                cost_before=before,
+                cost_after=cost(prob, r.kf_R, r.kf_t, r.points),
+                inliers=int(r.obs_inlier.sum()),
+                finite=bool(all(np.isfinite(x).all()
+                                for x in res[where][:3])))
+        valid = prob.obs_valid.numpy()
+        nudged = prob._replace(points=prob.points + torch.as_tensor(
+            np.random.default_rng(0).normal(0, COO_GBA_NUDGE,
+                                            prob.points.shape),
+            dtype=torch.float32))
+        res["nudged"] = solve(nudged, meta, prob.points.device)[2]
+    finally:
+        ba._ba_solve_coo = coo
+    rec["coo_calls"] = calls
+    rec["assembly_card_vs_cpu"] = {
+        name: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        for name, a, b in zip(("U", "b_c", "V", "b_p", "W"), eqs["card"],
+                              eqs["cpu"])}
+    rec["card_vs_cpu"] = diff(res["card"], res["cpu"])
+    rec["cpu_vs_nudged_cpu"] = diff(res["nudged"], res["cpu"])
+    log(f"11c COO-tier global BA on 11b's final map: {rec}")
+    fails = [f"{where}: {r}" for where, r in rec.items()
+             if where in ("card", "cpu") and not (
+                 r["tier"] == "coo" and r["finite"]
+                 and r["cost_after"] < r["cost_before"])]
+    if calls != [dev.type, "cpu", "cpu"]:
+        fails.append(f"_ba_solve_coo ran on {calls}")
+    if max(rec["assembly_card_vs_cpu"].values()) > COO_GBA_ASSEMBLY_TOL:
+        fails.append(f"the normal equations part: "
+                     f"{rec['assembly_card_vs_cpu']}")
+    if not (rec["card"]["cost_after"]
+            <= COO_GBA_COST * rec["cpu"]["cost_after"]
+            and rec["card_vs_cpu"]["inlier_share"] <= COO_GBA_INLIER_SHARE):
+        fails.append(f"the solves part: {rec['card_vs_cpu']}, cost "
+                     f"{rec['card']['cost_after']} against "
+                     f"{rec['cpu']['cost_after']}")
+    if fails:
+        raise AssertionError(f"11c missed its gates: {fails}")
+    return rec
+
+
+def metric_loop_phase(dev) -> dict:
+    """Phase 11: 11a, 11b and 11c, each sub-phase's time logged."""
+    log("phase 11 metric and inertial maps: 11a the RGB-D two-session "
+        "merge at fixed scale, 11b the stereo-inertial loop through VIBA2, "
+        "11c the COO-tier global BA on 11b's map")
+    out, t = {"seconds": {}}, [time.perf_counter()]
+    for name, key, run_sub in (
+            ("11a", "rgbd_merge", lambda: rgbd_merge_path(dev)),
+            ("11b", "vi_loop", lambda: vi_loop_path(dev)),
+            ("11c", "coo_gba", lambda: coo_gba_path(dev, FINAL_MAPS["11b"]))):
+        out[key] = run_sub()
+        t.append(time.perf_counter())
+        out["seconds"][name] = t[-1] - t[-2]
+        log(f"{name} took {t[-1] - t[-2]:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
-    """argv: optionally ``--phases 3,9,10`` to run only those of phases 3,
-    9 and 10 (phases 1 and 2 always run; the last lines then carry what
+    """argv: optionally ``--phases 3,9,10,11`` to run only those of phases
+    3, 9, 10 and 11 (phases 1 and 2 always run; the last lines then carry what
     ran)."""
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -3912,7 +4528,7 @@ def main(argv=None) -> int:
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = {p.strip() for p in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--phases 3,9,10]", file=sys.stderr)
+        print("usage: chip_smoke.py [--phases 3,9,10,11]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3936,7 +4552,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, phases=None) -> int:
-    """Phases 1-10 on the card dev (or 1, 2 and those named in phases);
+    """Phases 1-11 on the card dev (or 1, 2 and those named in phases);
     raises on the first failure."""
     import torch
     t_start = time.perf_counter()
@@ -4002,13 +4618,16 @@ def run(dev, phases=None) -> int:
     phase_done("phase 9")
     ph10 = async_phase(dev, sys_rec)
     phase_done("phase 10")
+    ph11 = metric_loop_phase(dev)
+    phase_done("phase 11")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
              ("relocalisation", reloc), ("merge", merge),
              ("imu_mono", imu["mono"]), ("imu_stereo", imu["stereo"]),
              ("imu_rgbd", imu["rgbd"]), ("async_mono", ph10["mono"]),
-             ("async_loop", ph10["loop"]))
+             ("async_loop", ph10["loop"]),
+             ("rgbd_merge", ph11["rgbd_merge"]), ("vi_loop", ph11["vi_loop"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -4054,7 +4673,8 @@ def run(dev, phases=None) -> int:
                     "frame": summary, "bootstrap": boot_summary,
                     "system": sys_summary, "stereo": st_summary,
                     "phase8": phase8, "phase9": phase9,
-                    "phase10": phase10_summary(ph10),
+                    "phase10": phase_summary(ph10),
+                    "phase11": phase_summary(ph11),
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
@@ -4071,7 +4691,7 @@ def inertial_phase(dev) -> dict:
     log("phase 9 visual-inertial: the Jacobian routes, then 9a "
         "IMU_MONOCULAR at its defaults, 9b IMU_STEREO and 9c IMU_RGBD")
     out = dict(jacobian_routes=jacobian_routes(dev))
-    out["mono"] = inertial_path(dev, "mono")
+    out["mono"] = inertial_path(dev, "mono", profile_from=-1)
     out["stereo"] = inertial_path(dev, "stereo")
     out["rgbd"] = inertial_rgbd(dev)
     return out
@@ -4080,7 +4700,7 @@ def inertial_phase(dev) -> dict:
 def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
     """9c: System(cam, IMU_RGBD, baseline=0.11) on the card takes IMU
     windows: the first n frames of 9b's sequence with their exact depth
-    maps (numpy ray cast); every frame tracked from the depth map's
+    maps (ray-cast on dev); every frame tracked from the depth map's
     initialisation on frame 0, each window preintegrated on the card, the
     launches those of n RGB-D frames. No JAX test has this case: no
     accuracy gate beyond the poses."""
@@ -4091,12 +4711,8 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
     cam = cameras.pinhole(**cam_kw)
     planes = sr.default_world(np.random.default_rng(13))
     traj = sr.inertial_trajectory(n, true_bg=IMU_STEREO_BG)
-    frames = []
-    for i in range(n):
-        img, X, hit = sr.render_frame_raycast(cam, planes, traj["R_cw"][i],
-                                              traj["t_cw"][i])
-        frames.append((img, sr.camera_depth(traj["R_cw"][i],
-                                            traj["t_cw"][i], X, hit)))
+    frames = [render_host_depth(cam, planes, traj["R_cw"][i],
+                                traj["t_cw"][i], dev) for i in range(n)]
     slam = system.System(cam, system.IMU_RGBD, baseline=BASELINE,
                          enable_loop_closing=False, device=dev)
     lm, n_fuse = slam.local_mapper, [0]
@@ -4135,7 +4751,7 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
 
 
 def run_some(dev, phases, rates, card, t_start) -> int:
-    """Only the phases named (3, 9 and 10; 10 runs 9a first for its map and
+    """Only the phases named (3, 9, 10 and 11; 10 runs 9a first for its map and
     a synchronous run of its own in place of phase 6's): the records of
     the paths that ran, and the last lines as in a whole run."""
     import torch
@@ -4149,7 +4765,9 @@ def run_some(dev, phases, rates, card, t_start) -> int:
         log("phase 9a (the map that 10c starts from)")
         inertial_path(dev, "mono")
     if "10" in phases:
-        out["phase10"] = phase10_summary(async_phase(dev))
+        out["phase10"] = phase_summary(async_phase(dev))
+    if "11" in phases:
+        out["phase11"] = phase_summary(metric_loop_phase(dev))
     log(f"the script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({k: (v if k != "phase9" else {
         n: {kk: vv for kk, vv in r.items() if kk != "how"}

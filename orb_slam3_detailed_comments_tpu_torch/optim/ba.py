@@ -408,36 +408,43 @@ def _jt_r(J: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return J[:, 0, :] * r[:, 0, None] + J[:, 1, :] * r[:, 1, None]
 
 
+def coo_normal_equations(prob: BAProblem, cam: cameras.CameraParams,
+                         kf_R, kf_t, points, obs_valid, delta2: float):
+    """The COO tier's robust Gauss-Newton system at one state, summed per
+    observation: U [C, 6, 6], b_c [C, 6], V [P, 3, 3], b_p [P, 3] and the
+    coupling W [P, C, 6, 3]."""
+    C = prob.kf_R.shape[0]
+    P = prob.points.shape[0]
+    oc, op = prob.obs_cam.long(), prob.obs_pt.long()
+    r, Jc, Jp, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t, points)
+    ok = obs_valid & depth_ok & prob.point_valid[op]
+    chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
+    w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
+    JcW = Jc * w[:, None, None]
+    JpW = Jp * w[:, None, None]
+    U = segment_sum(_outer2(JcW, Jc), oc, C)
+    b_c = segment_sum(_jt_r(JcW, r), oc, C)
+    V = segment_sum(_outer2(JpW, Jp), op, P)
+    b_p = segment_sum(_jt_r(JpW, r), op, P)
+    Wd = segment_sum(_outer2(JcW, Jp), op * C + oc, P * C).reshape(
+        P, C, 6, 3)
+    return U, b_c, V, b_p, Wd
+
+
 def _ba_solve_coo(prob: BAProblem, cam: cameras.CameraParams, iters: int,
                   delta2: float, lm_lambda0: float) -> BAResult:
     """COO scatter-add assembly for mid-size C (the table too wide, PCG not
-    yet warranted): U, b_c, V, b_p and the [P, C, 6, 3] coupling summed
-    per observation, then ``_schur_lm_solve``. Every iteration runs (the
-    JAX tier has no early exit either)."""
-    C = prob.kf_R.shape[0]
-    P = prob.points.shape[0]
+    yet warranted): ``coo_normal_equations``, then ``_schur_lm_solve``.
+    Every iteration runs (the JAX tier has no early exit either)."""
     dev = prob.points.device
-    oc, op = prob.obs_cam.long(), prob.obs_pt.long()
-    pair = op * C + oc
 
     def run(kf_R, kf_t, points, obs_valid, n):
         cost = _coo_robust_cost(prob, cam, kf_R, kf_t, points, obs_valid,
                                 delta2)
         lam = torch.full((), lm_lambda0, dtype=torch.float32, device=dev)
         for _ in range(n):
-            r, Jc, Jp, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t,
-                                                 points)
-            ok = obs_valid & depth_ok & prob.point_valid[op]
-            chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
-            w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
-            JcW = Jc * w[:, None, None]
-            JpW = Jp * w[:, None, None]
-            U = segment_sum(_outer2(JcW, Jc), oc, C)
-            b_c = segment_sum(_jt_r(JcW, r), oc, C)
-            V = segment_sum(_outer2(JpW, Jp), op, P)
-            b_p = segment_sum(_jt_r(JpW, r), op, P)
-            Wd = segment_sum(_outer2(JcW, Jp), pair, P * C).reshape(
-                P, C, 6, 3)
+            U, b_c, V, b_p, Wd = coo_normal_equations(
+                prob, cam, kf_R, kf_t, points, obs_valid, delta2)
             dc, dp = _schur_lm_solve(U, b_c, V, b_p, Wd, lam,
                                      prob.fixed_cam, prob.point_valid)
             T_new = se3.exp(dc).compose(SE3(kf_R, kf_t))

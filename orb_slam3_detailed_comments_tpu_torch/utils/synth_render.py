@@ -3,8 +3,9 @@
 Counterpart of a cv2-free subset of ``utils/synth_render.py`` of the JAX
 package: the same blob textures, worlds (``default_world``, the loop
 world ``box_world``) and trajectories (``orbit_trajectory``,
-``loop_trajectory``), so a seed gives the same world in both packages, and a ray-cast renderer for any camera
-model, modelled on its ``render_frame_raycast``, that also returns the
+``loop_trajectory``, ``inertial_trajectory``,
+``inertial_loop_trajectory``), so a seed gives the same world in both
+packages, and a ray-cast renderer for any camera model, modelled on its ``render_frame_raycast``, that also returns the
 exact 3D hit of every ray. ``render_stereo_pair`` and ``render_depth``
 (rectified stereo pairs, depth maps) are built on it: the JAX versions
 warp with ``cv2``. ``seed_map`` builds the map that tracking runs against from ground
@@ -160,6 +161,77 @@ def inertial_trajectory(n_frames, imu_per_frame=20, dt=0.005,
         if (k + 1) % imu_per_frame == 0:
             Rs_f.append(R.copy())
             ps_f.append(p.copy())
+    return _frames_and_windows(Rs_f, ps_f, accs, gyros, t_meas, n_frames,
+                               imu_per_frame, dt, g)
+
+
+def inertial_loop_trajectory(n_frames, imu_per_frame=10, dt=0.005,
+                             radius=3.0, closes=1.06,
+                             gravity=np.array([0.0, 9.81, 0.0]),
+                             true_bg=np.zeros(3), true_ba=np.zeros(3),
+                             wobble=0.05, yaw_burst=None):
+    """A loop around the inside of ``box_world`` with an exactly consistent
+    IMU stream (the JAX package's ``inertial_loop_trajectory``): the body
+    circles at ``radius`` facing radially outward for ``closes``
+    revolutions, its speed modulated by +-30 % and more (constant-speed
+    circular motion leaves the accelerometer's scale unobservable), with
+    a small body-rate wobble and a vertical bob; the rotation step is the
+    float64 host Rodrigues formula. ``yaw_burst`` = (u0, u1, fac) scales
+    the yaw rate by fac, then by 2 - fac, between the fractions u0 and u1
+    of the run. Camera == body, gravity along +y.
+
+    Returns ``inertial_trajectory``'s dict."""
+    n_steps = n_frames * imu_per_frame
+    total_t = n_steps * dt
+    omega = 2 * np.pi * closes / total_t          # mean yaw rate (rad/s)
+    R = np.eye(3)
+    p = np.array([0.0, 0.0, radius])
+    v = np.array([radius * omega, 0.0, 0.0])
+    g = np.asarray(gravity, np.float64)
+    Rs_f, ps_f = [R.copy()], [p.copy()]
+    accs, gyros, t_meas = [], [], []
+    for k in range(n_steps):
+        t = k * dt
+        r_cur = max(np.hypot(p[0], p[2]), 1e-6)
+        s_cur = np.hypot(v[0], v[2])
+        s_des = radius * omega * (1.0 + 0.30 * np.sin(2 * np.pi * 0.20 * t)
+                                  + 0.35 * np.sin(2 * np.pi * 0.53 * t + 1.2)
+                                  + 0.20 * np.sin(2 * np.pi * 0.97 * t + 0.5))
+        w_yaw = s_cur / r_cur       # keeps the camera facing outward
+        w_b = np.array([wobble * 0.3 * np.sin(2 * np.pi * 0.45 * t + 1.0),
+                        w_yaw + wobble * np.sin(2 * np.pi * 0.3 * t),
+                        wobble * 0.25 * np.sin(2 * np.pi * 0.6 * t + 2.0)])
+        if yaw_burst is not None:
+            u0, u1, fac = yaw_burst
+            u = k / n_steps
+            if u0 < u < u1:
+                w_b[1] *= fac if u < (u0 + u1) / 2 else 2.0 - fac
+        # centripetal for the current speed and radius, tangential tracking
+        # of the speed profile (~1/8 s), a vertical bob
+        p_hat = np.array([p[0], 0.0, p[2]]) / r_cur
+        v_hat = (np.array([v[0], 0.0, v[2]]) / s_cur if s_cur > 1e-9
+                 else np.array([1.0, 0.0, 0.0]))
+        a_w = (-(s_cur * s_cur / r_cur) * p_hat
+               + (8.0 * (s_des - s_cur)) * v_hat)
+        a_w[1] = 0.8 * np.sin(2 * np.pi * 0.45 * t + 0.7)
+        a_b = R.T @ (a_w - g)
+        accs.append(a_b + true_ba)
+        gyros.append(w_b + true_bg)
+        t_meas.append((k + 1) * dt)
+        p = p + v * dt + 0.5 * (R @ a_b + g) * dt * dt
+        v = v + (R @ a_b + g) * dt
+        R = R @ _rodrigues(w_b * dt)
+        if (k + 1) % imu_per_frame == 0:
+            Rs_f.append(R.copy())
+            ps_f.append(p.copy())
+    return _frames_and_windows(Rs_f, ps_f, accs, gyros, t_meas, n_frames,
+                               imu_per_frame, dt, g)
+
+
+def _frames_and_windows(Rs_f, ps_f, accs, gyros, t_meas, n_frames,
+                        imu_per_frame, dt, g) -> dict:
+    """The inertial trajectories' dict from the integrated body poses at
+    the frames and the IMU samples."""
     accs = np.stack(accs).astype(np.float32)
     gyros = np.stack(gyros).astype(np.float32)
     t_meas = np.asarray(t_meas)
@@ -256,22 +328,27 @@ def _texture_on(tex: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def render_image(cam: cameras.CameraParams, planes, R_cw, t_cw,
-                 device) -> torch.Tensor:
+                 device, with_depth: bool = False):
     """``render_frame_raycast``'s image as a float32 tensor [H, W] on
     ``device``: the same rays and bilinear texture reads as ``raycast``,
-    in torch (float64 rays, float32 texture weights), so that long
-    sequences render on the card. Undistorted pinhole cameras only."""
-    if cam.kind != cameras.PINHOLE or any(cam.dist):
-        raise ValueError("render_image takes an undistorted pinhole camera")
+    in torch (float64 rays, float32 texture weights; any other model than
+    an undistorted pinhole casts ``cameras.unproject_bearing``'s float32
+    bearings, as ``raycast`` does), so that long sequences render on the
+    card. ``with_depth``: also ``render_depth``'s map [H, W] float32, 0
+    where the ray hits nothing."""
     dev = torch.device(device)
     f64 = torch.float64
     H, W = cam.height, cam.width
     vv, uu = torch.meshgrid(torch.arange(H, dtype=f64, device=dev),
                             torch.arange(W, dtype=f64, device=dev),
                             indexing="ij")
-    rays = torch.stack([(uu.reshape(-1) - cam.cx) / cam.fx,
-                        (vv.reshape(-1) - cam.cy) / cam.fy,
-                        torch.ones(H * W, dtype=f64, device=dev)], dim=1)
+    if cam.kind == cameras.PINHOLE and not any(cam.dist):
+        rays = torch.stack([(uu.reshape(-1) - cam.cx) / cam.fx,
+                            (vv.reshape(-1) - cam.cy) / cam.fy,
+                            torch.ones(H * W, dtype=f64, device=dev)], dim=1)
+    else:
+        rays = cameras.unproject_bearing(cam, torch.stack(
+            [uu.reshape(-1), vv.reshape(-1)], 1).to(torch.float32)).to(f64)
     R_wc = np.asarray(R_cw, np.float64).T
     C_w = -R_wc @ np.asarray(t_cw, np.float64)
     rays_w = rays @ torch.from_numpy(R_wc.T.copy()).to(dev)
@@ -310,6 +387,13 @@ def render_image(cam: cameras.CameraParams, planes, R_cw, t_cw,
                + tx[i00 + w] * (1 - fx) * fy + tx[i00 + w + 1] * fx * fy)
         out = torch.where(inside, val, out)
         depth = torch.where(inside, d, depth)
+    if with_depth:
+        # a hit's camera z is its ray parameter times the ray's z (1 on
+        # the pinhole's rays)
+        z = depth * rays[:, 2]
+        return out.reshape(H, W), torch.where(
+            torch.isfinite(z), z,
+            torch.zeros_like(z)).to(torch.float32).reshape(H, W)
     return out.reshape(H, W)
 
 
