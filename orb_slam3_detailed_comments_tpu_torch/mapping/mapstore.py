@@ -6,10 +6,12 @@ tracking, map initialisation, bundle adjustment and the local mapper use
 culling with tombstones, point fusion, covisibility.
 Host bookkeeping runs on numpy arrays; ``device_points`` and
 ``device_kf_obs`` return tensors on the map's device, cached per
-``version`` (a full upload when the version changed). The JAX package's
-native host library (``native/slam_host.cpp``) has no counterpart yet
-(ROADMAP.md item 1.9): every derived structure here is computed by the
-numpy paths.
+``version`` (a full upload when the version changed). The irregular
+bookkeeping (observation counts, point fusion, the points' descriptors,
+normals and scale ranges, covisibility on incidence bitsets) runs in the
+g++-built host library ``host_native`` on every device, as the JAX package
+runs its ``native/slam_host.cpp``; its numpy twins live in
+``host_native/plain.py`` and serve only the tests.
 
 The inertial block (reference: KeyFrame's mVw / mImuBias /
 mpImuPreintegrated and the mPrevKF chain, include/KeyFrame.h): each
@@ -34,21 +36,10 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import host_native
 from ..imu import preintegration as pre_mod
 
 NO_POINT = -1
-
-
-def pack_point_bits(fp_rows: np.ndarray, max_pt: int) -> np.ndarray:
-    """[R, N] feature->point rows -> [R, max_pt/32] int32 membership bitsets
-    (bit p & 31 of word p >> 5 set iff point p is observed by the row)."""
-    R, _ = fp_rows.shape
-    bits = np.zeros((R, max_pt // 32), np.uint32)
-    r, c = np.nonzero((fp_rows >= 0) & (fp_rows < max_pt))
-    p = fp_rows[r, c]
-    np.bitwise_or.at(bits, (r, p >> 5),
-                     (np.uint32(1) << (p & 31).astype(np.uint32)))
-    return bits.view(np.int32)
 
 
 @dataclass
@@ -265,13 +256,16 @@ class MapStore:
         """Device copies of the observation structure for the on-device
         local-keyframe selection: feat_point [K, N], point_bits
         [K, max_pt/32] int32, valid [K] and the covisibility matrix
-        [K, K]; cached per map version."""
+        [K, K]; cached per map version. The bitsets are the host
+        library's incidence bits viewed as int32 words: bit p & 31 of word
+        p >> 5 is set iff the live keyframe observes point p (little-endian:
+        uint64 word w holds int32 words 2w and 2w + 1)."""
         if getattr(self, "_dev_kf_v", -1) == self.version:
             return self._dev_kf
         self._dev_kf = {
             "feat_point": self._to_dev(self.kf_feat_point),
-            "point_bits": self._to_dev(
-                pack_point_bits(self.kf_feat_point, self.cfg.max_pt)),
+            "point_bits": self._to_dev(self.incidence_bits().view(
+                np.int32)[:, :self.cfg.max_pt // 32]),
             "valid": self._to_dev(self.kf_valid),
             "covis": self._to_dev(self.covisibility_matrix()),
         }
@@ -345,11 +339,8 @@ class MapStore:
     def replace_point(self, old_id: int, new_id: int):
         """Fuse old into new (reference: MapPoint::Replace). A keyframe that
         already observes new_id drops its old_id link instead."""
-        mask = self.kf_feat_point == old_id
-        for k in np.where(mask.any(axis=1))[0]:
-            row = self.kf_feat_point[k]
-            row[row == old_id] = (NO_POINT if (row == new_id).any()
-                                  else new_id)
+        host_native.replace_point(self.kf_valid, self.kf_feat_point, old_id,
+                                  new_id)
         self.pt_found[new_id] += self.pt_found[old_id]
         self.pt_visible[new_id] += self.pt_visible[old_id]
         self.pt_valid[old_id] = False
@@ -518,9 +509,9 @@ class MapStore:
     # ---- derived structures ----------------------------------------------
 
     def observation_counts(self) -> np.ndarray:
-        """[P] number of keyframes observing each point."""
-        flat = self.kf_feat_point[self.kf_valid].ravel()
-        return np.bincount(flat[flat >= 0], minlength=self.cfg.max_pt)
+        """[P] int32: the number of live keyframes observing each point."""
+        return host_native.observation_counts(
+            self.kf_valid, self.kf_feat_point, self.cfg.max_pt)
 
     def incidence(self) -> np.ndarray:
         """[K, P] bool: KF k observes point p. Cached per map version."""
@@ -534,32 +525,52 @@ class MapStore:
         self._inc_cache, self._inc_cache_v = inc, self.version
         return inc
 
+    def incidence_bits(self) -> np.ndarray:
+        """[K, ceil(P/64)] uint64 incidence bitsets of the live keyframes,
+        cached per map version: AND and popcount over them give the
+        covisibility counts (reference: KeyFrame::UpdateConnections)."""
+        if getattr(self, "_bits_cache_v", -1) == self.version:
+            return self._bits_cache
+        self._bits_cache = host_native.build_incidence_bits(
+            self.kf_valid, self.kf_feat_point, self.cfg.max_pt)
+        self._bits_cache_v = self.version
+        return self._bits_cache
+
+    def _covis_weights(self, ks) -> np.ndarray:
+        """[len(ks), K] int32 shared-point counts of the query keyframes."""
+        return host_native.covis_counts(self.incidence_bits(), self.kf_valid,
+                                        np.asarray(ks, np.int64))
+
     def covisibility_matrix(self) -> np.ndarray:
-        """[K, K] shared-point counts (int32), cached per map version. The
-        incidence product runs in float32, exact for counts below 2^24."""
+        """[K, K] shared-point counts (int32) of the live keyframes' rows,
+        cached per map version."""
         if getattr(self, "_cov_cache_v", -1) == self.version:
             return self._cov_cache
         K = self.cfg.max_kf
         ids = self.kf_ids()
         cov = np.zeros((K, K), np.int32)
         if len(ids):
-            inc = self.incidence().astype(np.float32)
-            cov[ids] = np.rint(inc[ids] @ inc.T).astype(np.int32)
+            cov[ids] = self._covis_weights(ids)
         self._cov_cache, self._cov_cache_v = cov, self.version
         return cov
 
     def covisibility(self, k: int, min_weight: int = 15) -> tuple:
         """Keyframes sharing >= min_weight points with KF k, sorted by weight
-        (reference: KeyFrame::UpdateConnections threshold 15)."""
-        w = self.covisibility_matrix()[k].copy()
-        w[k] = 0
-        ids = np.where(w >= min_weight)[0]
-        order = np.argsort(-w[ids])
-        return ids[order], w[ids][order]
+        (reference: KeyFrame::UpdateConnections threshold 15). Counts the
+        one query row on the bitsets."""
+        return self.covisibility_batch([k], min_weight)[0]
 
     def covisibility_batch(self, ks, min_weight: int = 15) -> list:
-        """covisibility() of several keyframes: [(ids, weights), ...]."""
-        return [self.covisibility(int(k), min_weight) for k in ks]
+        """covisibility() of several keyframes in one pass over the
+        bitsets: [(ids, weights), ...]."""
+        W = self._covis_weights(ks)
+        out = []
+        for w, k in zip(W, ks):
+            w[int(k)] = 0
+            ids = np.where(w >= min_weight)[0]
+            order = np.argsort(-w[ids])
+            out.append((ids[order], w[ids][order]))
+        return out
 
     def point_observers(self, pid: int) -> np.ndarray:
         """Live keyframes observing point pid."""
@@ -569,7 +580,10 @@ class MapStore:
     def observers_of_points(self, pt_ids) -> np.ndarray:
         """[K] bool: live KFs observing any of pt_ids (the local-BA frontier
         query)."""
-        return self.incidence()[:, np.asarray(pt_ids, np.int64)].any(axis=1)
+        if len(pt_ids) == 0:
+            return np.zeros(self.cfg.max_kf, bool)
+        return host_native.observers_of(self.incidence_bits(), self.kf_valid,
+                                        pt_ids, self.cfg.max_pt)
 
     def local_point_ids(self, kf_ids) -> np.ndarray:
         """Union of points observed by the given keyframes."""
@@ -625,44 +639,19 @@ class MapStore:
     def update_point_stats(self, pids: np.ndarray):
         """Recompute representative descriptor + normal + scale range
         (reference: MapPoint::ComputeDistinctiveDescriptors /
-        UpdateNormalAndDepth)."""
+        UpdateNormalAndDepth) in the host library. The representative
+        descriptor is the observation whose upper-middle Hamming distance
+        to the others is least (``sorted(d)[n // 2]``; the first in
+        keyframe-major order wins a tie), as the JAX package's C++ takes it
+        (``native/slam_host.cpp``). ORB-SLAM3 takes the lower middle,
+        ``vDists[0.5 * (N - 1)]``; the port follows the JAX package, which
+        the tests compare against."""
         if len(pids) == 0:
             return
-        inc_kf = {int(p): [] for p in pids}
-        kk, ff = np.where(np.isin(self.kf_feat_point, pids)
-                          & (self.kf_feat_point >= 0))
-        for k, f in zip(kk, ff):
-            inc_kf[int(self.kf_feat_point[k, f])].append((k, f))
-        sf = self._scale_factors
-        for p, obs in inc_kf.items():
-            if not obs:
-                continue
-            ks = np.array([o[0] for o in obs])
-            fs = np.array([o[1] for o in obs])
-            descs = self.kf_feat_desc[ks, fs]           # [M, 8]
-            if len(descs) > 1:
-                x = descs[:, None, :] ^ descs[None, :, :]
-                d = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
-                self.pt_desc[p] = descs[np.argmin(np.median(d, axis=1))]
-            else:
-                self.pt_desc[p] = descs[0]
-            # normal: mean of unit vectors from camera centers to point
-            centers = -np.einsum("kij,ki->kj", self.kf_R[ks], self.kf_t[ks])
-            vecs = self.pt_xyz[p] - centers
-            norms = np.linalg.norm(vecs, axis=-1, keepdims=True)
-            self.pt_normal[p] = (vecs / np.maximum(norms, 1e-9)).mean(0)
-            n = np.linalg.norm(self.pt_normal[p])
-            if n > 1e-9:
-                self.pt_normal[p] /= n
-            # scale-invariance range from the reference KF's observation
-            ref = self.pt_ref_kf[p]
-            if ref in ks:
-                i = list(ks).index(ref)
-            else:
-                i = 0
-                self.pt_ref_kf[p] = ks[0]
-            lvl = self.kf_feat_level[ks[i], fs[i]]
-            dist = float(np.linalg.norm(vecs[i]))
-            self.pt_max_dist[p] = dist * sf[lvl]
-            self.pt_min_dist[p] = self.pt_max_dist[p] / sf[-1]
+        host_native.update_point_stats(
+            self.kf_valid, self.kf_feat_point, self.kf_feat_desc,
+            self.kf_feat_level, self.kf_R, self.kf_t, self.pt_xyz,
+            self.pt_ref_kf, np.asarray(pids, np.int64),
+            self._scale_factors.astype(np.float32), self.pt_desc,
+            self.pt_normal, self.pt_min_dist, self.pt_max_dist)
         self.version += 1

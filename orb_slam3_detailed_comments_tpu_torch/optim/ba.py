@@ -412,11 +412,16 @@ def coo_normal_equations(prob: BAProblem, cam: cameras.CameraParams,
                          kf_R, kf_t, points, obs_valid, delta2: float):
     """The COO tier's robust Gauss-Newton system at one state, summed per
     observation: U [C, 6, 6], b_c [C, 6], V [P, 3, 3], b_p [P, 3] and the
-    coupling W [P, C, 6, 3]."""
+    coupling W [P, C, 6, 3], in the state's type. Each observation's terms
+    are evaluated in float64 from the state: at a converged state the
+    per-point sums of J^T r cancel to a small fraction of their terms, and
+    float32 terms (FMA and matmul order) left the card's and the CPU's
+    b_p apart by up to 1.8e-4 of its largest entry."""
     C = prob.kf_R.shape[0]
     P = prob.points.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
-    r, Jc, Jp, depth_ok = _coo_residuals(prob, cam, kf_R, kf_t, points)
+    r, Jc, Jp, depth_ok = _coo_residuals(prob, cam, kf_R.double(),
+                                         kf_t.double(), points.double())
     ok = obs_valid & depth_ok & prob.point_valid[op]
     chi2 = torch.sum(r * r, dim=-1) * prob.obs_w
     w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
@@ -428,7 +433,7 @@ def coo_normal_equations(prob: BAProblem, cam: cameras.CameraParams,
     b_p = segment_sum(_jt_r(JpW, r), op, P)
     Wd = segment_sum(_outer2(JcW, Jp), op * C + oc, P * C).reshape(
         P, C, 6, 3)
-    return U, b_c, V, b_p, Wd
+    return tuple(x.to(points.dtype) for x in (U, b_c, V, b_p, Wd))
 
 
 def _ba_solve_coo(prob: BAProblem, cam: cameras.CameraParams, iters: int,

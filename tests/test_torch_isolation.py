@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-PyYAML or OpenCV, which the card's machine lacks), its entry points refuse
+PyYAML or OpenCV, which the card's machine lacks; the host surfaces too:
+the host library, dataset readers, viewers, ROS layer and dataset entry
+points), its entry points refuse
 to run on a missing card unless asked for the CPU, and its kernel wrappers
 count only launches on the card, exactly also when several threads count.
 """
@@ -111,6 +113,55 @@ def test_new_modules_import_alone_without_jax(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+HOST_SURFACES = [
+    "host_native", "host_native.plain", "utils.png", "utils.datasets",
+    "utils.clahe", "viz.drawers", "viz.viewer_ar", "viz.webviewer",
+    "ros.transport", "ros.nodes", "examples.runner", "examples.mono_euroc",
+    "examples.mono_tum", "examples.mono_kitti", "examples.mono_tum_vi",
+    "examples.mono_inertial_euroc", "examples.mono_inertial_tum_vi",
+    "examples.stereo_euroc", "examples.stereo_kitti",
+    "examples.stereo_tum_vi", "examples.stereo_inertial_euroc",
+    "examples.stereo_inertial_tum_vi", "examples.rgbd_tum",
+    "examples.synthetic_demo", "examples.ros.common",
+    "examples.ros.ros_mono", "examples.ros.ros_mono_ar",
+    "examples.ros.ros_mono_inertial", "examples.ros.ros_rgbd",
+    "examples.ros.ros_stereo", "examples.ros.ros_stereo_inertial"]
+
+
+@pytest.fixture(scope="module")
+def host_surface_imports():
+    """Each host-surface module imported on its own in one interpreter:
+    before each import every module of the port is dropped from
+    sys.modules (torch stays loaded, which is allowed), and what the
+    import pulled in is checked. Returns {module: forbidden modules}."""
+    code = (
+        "import sys, importlib, json\n"
+        f"mods = {HOST_SURFACES!r}\n"
+        "bad = {}\n"
+        "for m in mods:\n"
+        f"    for k in [k for k in sys.modules if k.startswith('{PKG}')]:\n"
+        "        del sys.modules[k]\n"
+        f"    importlib.import_module('{PKG}.' + m)\n"
+        "    bad[m] = [k for k in sys.modules if k == 'jax'"
+        " or k.startswith('jax.') or k == 'orb_slam3_detailed_comments_tpu'"
+        " or k.startswith('orb_slam3_detailed_comments_tpu.')"
+        " or k in ('yaml', 'cv2')]\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", HOST_SURFACES)
+def test_host_surfaces_import_alone_without_jax(module,
+                                                host_surface_imports):
+    """The host library, dataset readers, viewers, ROS layer and entry
+    points import without jax, the JAX package, cv2 or yaml."""
+    assert host_surface_imports[module] == []
 
 
 def test_vocabulary_path_needs_no_jax_import():

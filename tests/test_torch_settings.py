@@ -180,10 +180,15 @@ def test_resize_image_matches_cv2(shape, dtype):
 
 
 def test_legacy_rectification_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="1.8"):
-        config.stereo_rectify_maps(config.Settings())
-    with pytest.raises(NotImplementedError, match="1.8"):
-        config.rectify(np.zeros((4, 4), np.float32), None)
+    """Item 1.8 brought the legacy rectification, so nothing raises: a
+    settings file without LEFT.* / RIGHT.* blocks has no maps (None, as in
+    the JAX package), and the identity maps give the image back
+    (tests/test_torch_datasets.py holds both to cv2)."""
+    assert config.stereo_rectify_maps(config.Settings()) is None
+    img = np.arange(20, dtype=np.float32).reshape(4, 5)
+    u, v = np.meshgrid(np.arange(5, dtype=np.float32),
+                       np.arange(4, dtype=np.float32))
+    np.testing.assert_array_equal(config.rectify(img, (u, v)), img)
 
 
 def _assert_wired_alike(slam, jslam):
