@@ -16,7 +16,8 @@ Phases, each of which raises on failure:
      gather_patches as the frame's one call over the 8 levels (all-zero,
      tied, negative and -inf cells, content edges, corners outside the
      image), over tables of 1 and 16 levels and of 17 in two launches,
-     cell_topk also at
+     the three extraction kernels also at a batch's 16 and 64 levels (2
+     and 8 frames, as extractor.extract_batch calls them); cell_topk also at
      cells 16, 48, 64, 80 and 24 (the last on its plain version, the shape
      rule), and in their one-level cases (the [C, 1024], [C, 384] and
      [C, 2304] matrices; the "xla"
@@ -156,15 +157,33 @@ Phases, each of which raises on failure:
      covisibility_batch over the live keyframes and covisibility_matrix,
      the host library against its numpy twins (and the old incidence
      product), 3 turns each, results equal.
-  ``--phases 3,9,10,11,12`` runs phases 1, 2 and the named ones only (10
+ 13. the multi-device layer: (a) phase 6's world (seed 7) at 752x480 with
+     OrbConfig(), 16 frames prepared in blocks of 2 and of 8
+     (kernels.prepare_frames: one batched extraction a block), every frame
+     equal to its own prepare_frame call on the card in every field, each
+     extraction kernel launched ceil(8B / 16) times a block; host ms and
+     device ms a frame and kernels a frame, per frame against each block
+     size, in turns; (b) System.track_monocular_batch on phase 6's first 20
+     frames (blocks of 8) against track_monocular on the same frames (loop
+     closing off, test_batch_ingest_matches_online_tracking's gates: the
+     same None pattern, poses within 1e-5; exact launch counts); (c) two
+     processes on the card over gloo (this process starts no group): the
+     sharded Schur step, the sharded PCG at C = 192 and the sharded
+     inertial BA (on 9a's final map, or a synthetic chain when phase 9
+     does not run) each
+     against its world-1 solve at the JAX tests' tolerances, their clocks,
+     and the racing global BA with dist_gba, rank 1 serving: one run
+     applied, the abort bit-exact.
+  ``--phases 3,9,10,11,12,13`` runs phases 1, 2 and the named ones only (10
   with 9a first, whose map 10c takes; 12 alone takes its turns on its own
-  monocular map).
+  monocular map; 13 alone takes the synthetic chain).
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
 "stereo", phase 8's under "phase8", phase 9's under "phase9", phase 10's
-under "phase10", phase 11's under "phase11", phase 12's under "phase12"), the
+under "phase10", phase 11's under "phase11", phase 12's under "phase12",
+phase 13's under "phase13"), the
 card's
 name
 and power limit (nvidia-smi's csv), and last
@@ -640,6 +659,7 @@ def kernel_phase(dev, rates):
     rec[-1]["one_call_ms"] = device_ms(lambda: hamming.hamming_best2(*args),
                                        what="hamming_best2, one call")
     rec.append(frontend_kernel_check(dev))
+    batched_kernel_check(dev, {r["name"]: r for r in rec})
     for r in rec:
         held = ("equal to plain" if r["max_abs_err"] == 0 else
                 f"within {r['max_abs_err']:.4f} of plain")
@@ -973,6 +993,175 @@ def frontend_kernel_check(dev):
         lambda: frontend.dense_frontend_levels(levels),
         lambda: [frontend.dense_frontend_plain(l) for l in levels],
         plain_reps=5)
+
+
+BATCH_LEVELS = (16, 64)    # 8B levels of B = 2 and 8 frames (phase 13a)
+
+
+def batched_kernel_check(dev, recs):
+    """The three extraction kernels at the shapes of a batch of B = 2 and 8
+    frames at 752x480 (``extractor.extract_batch``: 8B levels, one
+    dense_frontend_levels and one cell_topk_levels call launching once
+    for every 16 levels, gather_patches_levels once for every table of
+    2 frames' 16 blur maps), each against its plain version on the same
+    inputs with phase 3's gates (score, blur, top-k and windows equal;
+    moments within MOMENT_TOL); the launches counted; timed beside B calls
+    of the one-frame shapes. Adds a "batched" entry to each record."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import (
+        brief, extractor, frontend, layout, patches, pyramid, topk)
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    rng = np.random.default_rng(13)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    orb = extractor.OrbConfig()
+    H, W = CAM_KW["height"], CAM_KW["width"]
+    shapes = pyramid.level_shapes(H, W, orb.n_levels, orb.scale)
+    contents = layout.content_dims(orb, H, W)
+    budgets = layout.level_budgets(orb)
+    k, margin, pw = orb.k_per_cell, orb.margin, brief.PATCH_W
+    cam = cameras.pinhole(**CAM_KW)
+    planes = sr.default_world(np.random.default_rng(7))
+    R, t = sr.orbit_trajectory(60)
+
+    def launched(name, fn, want, what):
+        n0 = native.launches[name]
+        out = fn()
+        torch.cuda.synchronize()
+        if native.launches[name] - n0 != want:
+            raise AssertionError(f"{what}: {native.launches[name] - n0} "
+                                 f"launches, expected {want}")
+        return out
+
+    for n_lv in BATCH_LEVELS:
+        B = n_lv // orb.n_levels
+        want = -(-n_lv // frontend.MAX_LEVELS)
+        what = f"{n_lv} levels ({B} frames)"
+        # dense_frontend over the pyramids of B ray-cast frames
+        imgs = torch.stack([torch.round(sr.render_image(
+            cam, planes, R[i], t[i], dev)) for i in range(B)])
+        pyr = pyramid.build_pyramid(imgs, orb.n_levels, orb.scale)
+        levels = [lv[b] for b in range(B) for lv in pyr]
+        got = launched("dense_frontend",
+                       lambda: frontend.dense_frontend_levels(levels), want,
+                       f"dense_frontend_levels, {what}")
+        worst = 0.0
+        for lv, g in zip(levels, got):
+            ref = frontend.dense_frontend_plain(lv)
+            for name, x, y in zip(("score", "blur"), g[:2], ref[:2]):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"dense_frontend {name} differs "
+                                         f"from its plain version ({what})")
+            worst = max(worst, *(float((x - y).abs().max())
+                                 for x, y in zip(g[2:], ref[2:])))
+        if not worst < MOMENT_TOL:
+            raise AssertionError(f"dense_frontend moments {worst} from the "
+                                 f"plain version ({what})")
+        n_px = sum(int(l.numel()) for l in levels)
+        b, by = bound_ms(n_px * 20, n_px * FRONTEND_OPS_PER_PIXEL)
+        recs["dense_frontend"].setdefault("batched", {})[n_lv] = dict(
+            library_ms=None, levels=n_lv, launches=want, max_abs_err=worst,
+            ms=device_ms(lambda: frontend.dense_frontend_levels(levels),
+                         what=f"dense_frontend, {what}"),
+            per_frame_ms=device_ms(lambda: [frontend.dense_frontend_levels(
+                levels[i:i + orb.n_levels])
+                for i in range(0, n_lv, orb.n_levels)],
+                what=f"dense_frontend, {what} one frame a call"),
+            plain_ms=device_ms(lambda: [frontend.dense_frontend_plain(l)
+                                        for l in levels], reps=3,
+                               what=f"dense_frontend, {what}, plain"),
+            bound_ms=b, bound_by=by)
+
+        # cell_topk over B frames' score maps
+        maps = [m for _ in range(B) for m in score_maps_case(rng, shapes, f)]
+        cont = contents * B
+        got = launched("cell_topk", lambda: topk.cell_topk_levels(
+            maps, cont, margin, k), want, f"cell_topk_levels, {what}")
+        ref = topk.cell_topk_levels_plain(maps, cont, margin, k)
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise AssertionError(f"cell_topk differs from its plain version "
+                                 f"({what})")
+        n_in = B * sum(max(0, min(lh, ch - margin) - margin)
+                       * max(0, min(lw, cw - margin) - margin)
+                       for (lh, lw), (ch, cw) in zip(shapes, contents))
+        b, by = bound_ms(n_in * 4 + got[0].shape[0] * k * 8, n_in)
+        cells = torch.cat([topk.level_cells(m, c, margin)
+                           for m, c in zip(maps, cont)])
+        recs["cell_topk"].setdefault("batched", {})[n_lv] = dict(
+            library_ms=device_ms(lambda: torch.topk(cells, k, dim=1),
+                                 what=f"cell_topk, {what}, library"),
+            levels=n_lv, launches=want, max_abs_err=0.0,
+            ms=device_ms(lambda: topk.cell_topk_levels(maps, cont, margin,
+                                                       k),
+                         what=f"cell_topk, {what}"),
+            per_frame_ms=device_ms(lambda: [topk.cell_topk_levels(
+                maps[i:i + orb.n_levels], contents, margin, k)
+                for i in range(0, n_lv, orb.n_levels)],
+                what=f"cell_topk, {what} one frame a call"),
+            plain_ms=device_ms(lambda: topk.cell_topk_levels_plain(
+                maps, cont, margin, k), reps=5,
+                what=f"cell_topk, {what}, plain"),
+            bound_ms=b, bound_by=by)
+
+        # gather_patches: one call a table of 2 frames' 16 blur maps, as
+        # extract_batch makes them
+        per = patches.MAX_IMAGES // orb.n_levels
+        blurs = [f(np.round(rng.uniform(0, 255, sh)).astype(np.float32))
+                 for _ in range(B) for sh in shapes]
+        lv, rc = zip(*[corners_case(rng, shapes, contents, budgets, f)
+                       for _ in range(B)])
+        tables = [(blurs[g * orb.n_levels:(g + per) * orb.n_levels],
+                   torch.cat([lv[g + j] + orb.n_levels * j
+                              for j in range(per)]),
+                   torch.cat(rc[g:g + per])) for g in range(0, B, per)]
+        got = launched("gather_patches", lambda: [
+            patches.gather_patches_levels(im, l, r, pw)
+            for im, l, r in tables], B // per,
+            f"gather_patches_levels, {what}")
+        for (im, l, r), g in zip(tables, got):
+            if not torch.equal(g, patches.gather_patches_levels_plain(
+                    im, l, r, pw)):
+                raise AssertionError(f"gather_patches differs from its plain "
+                                     f"version ({what})")
+        n_feat = sum(int(r.shape[0]) for _, _, r in tables)
+        n_cov = sum(covered_pixels(shapes, patch_starts(shapes, budgets,
+                                                        rc[i], pw), pw)
+                    for i in range(B))
+        b, by = bound_ms(n_feat * 12 + n_cov * 4 + n_feat * pw * pw * 4, 0)
+        windows = [(im.unfold(0, pw, 1).unfold(1, pw, 1), r0, c0)
+                   for i in range(B)
+                   for im, (r0, c0) in zip(
+                       blurs[i * orb.n_levels:(i + 1) * orb.n_levels],
+                       patch_starts(shapes, budgets, rc[i], pw))]
+        if not torch.equal(torch.cat([v[r0, c0] for v, r0, c0 in windows]),
+                           torch.cat(got)):
+            raise AssertionError(f"gather_patches' library call differs "
+                                 f"({what})")
+        recs["gather_patches"].setdefault("batched", {})[n_lv] = dict(
+            library_ms=device_ms(lambda: [v[r0, c0] for v, r0, c0 in windows],
+                                 what=f"gather_patches, {what}, library"),
+            levels=n_lv, launches=B // per, max_abs_err=0.0,
+            ms=device_ms(lambda: [patches.gather_patches_levels(
+                im, l, r, pw) for im, l, r in tables],
+                what=f"gather_patches, {what}"),
+            per_frame_ms=device_ms(lambda: [patches.gather_patches_levels(
+                blurs[i * orb.n_levels:(i + 1) * orb.n_levels], lv[i], rc[i],
+                pw) for i in range(B)],
+                what=f"gather_patches, {what} one frame a call"),
+            plain_ms=device_ms(lambda: [
+                patches.gather_patches_levels_plain(im, l, r, pw)
+                for im, l, r in tables], reps=5,
+                what=f"gather_patches, {what}, plain"),
+            bound_ms=b, bound_by=by)
+        for name in ("dense_frontend", "cell_topk", "gather_patches"):
+            q = recs[name]["batched"][n_lv]
+            log(f"  {name} at {what}: equal to plain (max err "
+                f"{q['max_abs_err']:.4f}) in {q['launches']} launches; "
+                f"device {q['ms']:.4f} ms (one frame a call "
+                f"{q['per_frame_ms']:.4f}, plain {q['plain_ms']:.4f}, library "
+                f"{q['library_ms']}, bound "
+                f"{q['bound_ms']:.5f} by {q['bound_by']})")
 
 
 def render_host(cam, planes, R_cw, t_cw, dev):
@@ -4900,17 +5089,590 @@ def metric_loop_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# the multi-device layer: 13a frame-batched extraction, 13b batch ingestion
+# through System.track_monocular_batch, 13c the sharded solves in two
+# processes on the one card over gloo (NCCL refuses two ranks on one
+# device); the script's own process starts no process group
+BATCH_FRAMES = 16
+BATCH_BLOCKS = (2, 8)
+BATCH_TURNS = 3
+INGEST_FRAMES = 20
+INGEST_POSE_TOL = 1e-5
+SHARD_WORLD = 2
+SHARD_TOL = dict(ba_step=2e-4, gba_pcg=2e-3, viba_p=2e-3, viba_v=2e-2)
+EXTRACT_KERNELS = ("dense_frontend", "cell_topk", "gather_patches")
+
+
+def batch_extract_path(dev, cam_kw=CAM_KW, n=BATCH_FRAMES, world_seed=7,
+                       blocks=BATCH_BLOCKS, turns=BATCH_TURNS):
+    """13a: phase 6's world at 752x480 with OrbConfig(), n frames ray-cast
+    on dev, prepared in blocks of B (``kernels.prepare_frames``) for each
+    B of blocks: every frame equal to its own ``prepare_frame`` call on
+    the card in every field, each extraction kernel launched ceil(8B / 16)
+    times a block (the counts set to 0 just before the batched runs and
+    read just after); then host ms and device ms a frame and kernels a
+    frame, per-frame against each block size, in turns."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops.extractor import OrbConfig
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**cam_kw)
+    orb = OrbConfig()
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(60)
+    imgs = torch.stack([sr.render_image(cam, planes, R[i], t[i], dev)
+                        for i in range(n)])
+    ref = [kernels.prepare_frame(imgs[i], cam, orb) for i in range(n)]
+    batched = lambda B: [p for s in range(0, n, B) for p in kernels.unbatch(
+        kernels.prepare_frames(imgs[s:s + B], cam, orb))]
+    reset_counts()                          # this path's run starts here
+    got = {}
+    for B in blocks:
+        n0 = dict(native.launches)
+        got[B] = batched(B)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        want = (n // B) * -(-orb.n_levels * B // 16)
+        for name in EXTRACT_KERNELS:
+            if dev.type == "cuda" and native.launches[name] - n0[name] != want:
+                raise AssertionError(
+                    f"13a blocks of {B}: {name} launched "
+                    f"{native.launches[name] - n0[name]} times, expected "
+                    f"{want} ({n // B} blocks of ceil(8B / 16))")
+    launches = dict(native.launches)        # ... and ends here
+    for B in blocks:
+        for i, (p, r) in enumerate(zip(got[B], ref)):
+            for name, x, y in zip(p.feat._fields + ("xy_ud", "xyn"),
+                                  tuple(p.feat) + p[1:],
+                                  tuple(r.feat) + r[1:]):
+                if x.shape != y.shape or not torch.equal(x, y):
+                    raise AssertionError(f"13a blocks of {B}: frame {i}'s "
+                                         f"{name} differs from prepare_frame")
+    rec = dict(frames=n, blocks=list(blocks), launches=launches,
+               equal="every field of every frame, both block sizes")
+    if dev.type != "cuda":
+        return rec
+    modes = {"per_frame": lambda: [kernels.prepare_frame(imgs[i], cam, orb)
+                                   for i in range(n)]}
+    modes.update({f"block_{B}": (lambda B=B: batched(B)) for B in blocks})
+    host = {m: [] for m in modes}
+    for _ in range(turns):                  # in turns: the host drifts
+        for m, fn in modes.items():
+            host[m].append(host_ms(fn, reps=1) / n)
+    rec["host_ms_a_frame"] = {m: float(np.median(v)) for m, v in host.items()}
+    rec["host_ms_turns"] = host
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    rec["device_ms_a_frame"], rec["kernels_a_frame"] = {}, {}
+    for m, fn in modes.items():             # one profiled pass a mode
+        avg = profiled(lambda _, fn=fn: (fn(), torch.cuda.synchronize()),
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        if avg is None:
+            raise AssertionError(f"13a {m}: the profiler saw no kernel")
+        cuda = [e for e in avg if e.device_type == DeviceType.CUDA]
+        rec["device_ms_a_frame"][m] = sum(
+            e.self_device_time_total for e in cuda) / 1e3 / n
+        rec["kernels_a_frame"][m] = sum(e.count for e in cuda) / n
+    log("13a batched extraction, " + "; ".join(
+        f"{m}: host {rec['host_ms_a_frame'][m]:.3f} ms a frame (turns "
+        f"{', '.join(f'{x:.3f}' for x in host[m])}), device "
+        f"{rec['device_ms_a_frame'][m]:.4f} ms, "
+        f"{rec['kernels_a_frame'][m]:.1f} kernels" for m in modes))
+    return rec
+
+
+def batch_ingest_path(dev, cam_kw=CAM_KW, n=INGEST_FRAMES, world_seed=7):
+    """13b: test_batch_ingest_matches_online_tracking's gates on phase 6's
+    first n frames: System.track_monocular_batch (blocks of
+    batch_extract.INGEST_BLOCK_MULTIPLE frames, one batched extraction
+    each) against track_monocular frame by frame, loop
+    closing off as in the JAX test; the same frames tracked (None where
+    online is None) and every pose within INGEST_POSE_TOL; the batch
+    run's launches: one of each extraction kernel a block, the searches as
+    its frames and keyframe events require."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.parallel import batch_extract
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        synth_render as sr, timing)
+    cam = cameras.pinhole(**cam_kw)
+    planes = sr.default_world(np.random.default_rng(world_seed))
+    R, t = sr.orbit_trajectory(60)
+    frames = np.stack([render_host(cam, planes, R[i], t[i], dev)
+                       for i in range(n)])
+    ts = 0.05 * np.arange(n)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    a = system.System(cam, system.MONOCULAR, enable_loop_closing=False,
+                      device=dev)
+    t0 = time.perf_counter()
+    online = [a.track_monocular(frames[i], float(ts[i])) for i in range(n)]
+    sync()
+    t_online = time.perf_counter() - t0
+    b = system.System(cam, system.MONOCULAR, enable_loop_closing=False,
+                      device=dev)
+    lm, n_fuse = b.local_mapper, [0]
+    process = lm.process_keyframe
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event["fuse_searches"]
+
+    lm.process_keyframe = counted
+    n_span = len(timing.samples("ORB extraction"))
+    reset_counts()                          # this path's run starts here
+    t0 = time.perf_counter()
+    batch = b.track_monocular_batch(frames, ts)
+    sync()
+    t_batch = time.perf_counter() - t0
+    launches = dict(native.launches)        # ... and ends here
+    lm.process_keyframe = process
+    tracked = [p is not None for p in online]
+    diff = max((float(np.abs(x - y).max()) for x, y in zip(online, batch)
+                if x is not None and y is not None), default=0.0)
+    rec = dict(frames=n, tracked=sum(tracked), launches=launches,
+               same_none=tracked == [p is not None for p in batch],
+               max_pose_diff=diff, online_s=t_online, batch_s=t_batch,
+               extraction_span_ms=[1e3 * x for x in
+                                   timing.samples("ORB extraction")[n_span:]],
+               keyframes=b.n_keyframes)
+    want = expected_launches(b.tracker, n, n_fuse[0])
+    blk = batch_extract.INGEST_BLOCK_MULTIPLE
+    want.update({k: -(-n // blk) * -(-8 * blk // 16)
+                 for k in EXTRACT_KERNELS})
+    log(f"13b batch ingestion: {rec['tracked']}/{n} frames tracked online, "
+        f"None pattern equal {rec['same_none']}, largest pose difference "
+        f"{diff:.3e} (gate {INGEST_POSE_TOL}); host clock {t_online:.2f} s "
+        f"online, {t_batch:.2f} s batched (extraction span "
+        f"{sum(rec['extraction_span_ms']):.1f} ms); launches {launches} "
+        f"(expected {want})")
+    if not rec["same_none"] or diff > INGEST_POSE_TOL or not any(tracked):
+        raise AssertionError(f"13b: {rec}")
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"13b launches {launches}, expected {want}")
+    return rec
+
+
+def scene_map(rng, cam, device, n_points=120, n_cams=4):
+    """tests/test_loop_closing.py::TestAsyncGlobalBA's scene map (points in
+    a box, cameras on an arc looking in, tests/synthetic.make_scene), then
+    its perturbation: keyframes 1-3 moved by N(0, 0.05) m, the points by
+    N(0, 0.02) m. Returns (map, the true keyframe translations)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapConfig, MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    pts = rng.uniform(-2.0, 2.0, size=(n_points, 3))
+    pts[:, 2] *= 0.5
+    Rs, ts = [], []
+    for k in range(n_cams):
+        ang = (k / max(n_cams - 1, 1) - 0.5) * 1.2
+        eye = np.array([6.0 * np.sin(ang), 0.3 * np.sin(3 * ang),
+                        -6.0 * np.cos(ang)])
+        z = -eye / np.linalg.norm(eye)
+        x = np.cross([0.0, -1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        Rk = np.stack([x, np.cross(z, x), z])
+        Rs.append(Rk)
+        ts.append(-Rk @ eye)
+    R = np.stack(Rs).astype(np.float32)
+    t = np.stack(ts).astype(np.float32)
+    pc = np.einsum("cij,pj->cpi", R, pts) + t[:, None, :]
+    uv = cameras.project(cam, torch.from_numpy(pc.astype(np.float32)))
+    vis = (pc[..., 2] > 0.3) & cameras.in_image(cam, uv).numpy()
+    uv = uv.numpy()
+    m = MapStore(MapConfig(max_kf=16, max_pt=512, n_feat=128), device=device)
+    m.pt_xyz[:n_points] = pts
+    m.pt_valid[:n_points] = True
+    m.pt_ref_kf[:n_points] = 0
+    for c in range(n_cams):
+        v = np.where(vis[c])[0][:128]
+        fp = np.full(128, -1, np.int32)
+        fp[:len(v)] = v
+        xy = np.zeros((128, 2), np.float32)
+        xy[:len(v)] = uv[c][v]
+        val = np.zeros(128, bool)
+        val[:len(v)] = True
+        m.add_keyframe(R[c], t[c], 0.1 * c, c, xy,
+                       np.zeros((128, 2), np.float32),
+                       np.zeros(128, np.int32), np.zeros(128, np.float32),
+                       np.zeros((128, 8), np.int32), val, fp)
+    m.kf_t[1:4] += rng.normal(0, 0.05, (3, 3)).astype(np.float32)
+    m.pt_xyz[:n_points] += rng.normal(0, 0.02, (n_points, 3)).astype(
+        np.float32)
+    return m, t
+
+
+def ba_problem_arrays(rng, cam, C, Pn, O):
+    """tests/test_parallel.py::_ba_problem's problem with the port's so3
+    and projection: C cameras, Pn points, O noisy observations (0.3 px),
+    the translations and points perturbed by N(0, 0.02), camera 0 fixed."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.lie import so3
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    kf_R = np.stack([so3.exp(torch.from_numpy(
+        rng.normal(0, 0.05, 3).astype(np.float32))).numpy()
+        for _ in range(C)])
+    kf_t = np.stack([rng.normal(0, 0.2, 3) + [0.3 * c, 0, 0]
+                     for c in range(C)]).astype(np.float32)
+    pts = np.stack([rng.uniform(-2, 2, Pn), rng.uniform(-1.5, 1.5, Pn),
+                    rng.uniform(3, 7, Pn)], 1).astype(np.float32)
+    oc = rng.integers(0, C, O).astype(np.int32)
+    op = rng.integers(0, Pn, O).astype(np.int32)
+    pc = np.einsum("oij,oj->oi", kf_R[oc], pts[op]) + kf_t[oc]
+    uv = cameras.project(cam, torch.from_numpy(pc.astype(np.float32)))
+    uv = (uv.numpy() + rng.normal(0, 0.3, (O, 2))).astype(np.float32)
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    return dict(kf_R=kf_R, kf_t=(kf_t + rng.normal(0, 0.02, kf_t.shape)
+                                 ).astype(np.float32),
+                points=(pts + rng.normal(0, 0.02, pts.shape)
+                        ).astype(np.float32),
+                obs_cam=oc, obs_pt=op, obs_uv=uv, obs_w=np.ones(O, np.float32),
+                obs_valid=np.ones(O, bool), fixed_cam=fixed,
+                point_valid=np.ones(Pn, bool))
+
+
+def synthetic_vi_chain(rng, n_kf=10, n_pts=300, world=SHARD_WORLD):
+    """A visual-inertial chain for 13c when phase 9 does not run: n_kf
+    keyframes of synth_render.inertial_trajectory (camera == body), one
+    preintegrated edge between neighbours, n_pts points observed with
+    0.4 px noise, the states but the first perturbed. Returns the
+    VIBAProblem's fields as numpy (edge_pre a tuple) and the gravity."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.imu import preintegration
+    from orb_slam3_detailed_comments_tpu_torch.lie import so3
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**CAM_KW)
+    traj = sr.inertial_trajectory(n_kf)
+    R_wb = np.transpose(traj["R_cw"], (0, 2, 1)).astype(np.float32)
+    p_w = traj["centers"].astype(np.float32)
+    v_w = np.gradient(p_w, traj["ts"], axis=0).astype(np.float32)
+    calib = preintegration.ImuCalib.default()
+    pres = []
+    for acc, gyro, tm in traj["windows"][1:]:
+        dts = np.full(len(tm), tm[1] - tm[0], np.float32)
+        pres.append(preintegration.integrate(
+            *(torch.from_numpy(np.asarray(x, np.float32))
+              for x in (acc, gyro, dts)), calib))
+    pre = preintegration.stack(pres)
+    pts = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts),
+                    rng.uniform(4, 9, n_pts)], 1).astype(np.float32)
+    oc, op, ouv = [], [], []
+    for c in range(n_kf):
+        xc = (pts - p_w[c]) @ R_wb[c]
+        uv = cameras.project(cam, torch.from_numpy(xc)).numpy()
+        vis = (xc[:, 2] > 0.5) & cameras.in_image(
+            cam, torch.from_numpy(uv)).numpy()
+        for i in np.where(vis)[0]:
+            oc.append(c)
+            op.append(i)
+            ouv.append(uv[i] + rng.normal(0, 0.4, 2))
+    O = len(oc) + (-len(oc) % world)        # a multiple of the world size
+    valid = np.arange(O) < len(oc)
+    padded = lambda a, dt_: np.concatenate(
+        [np.asarray(a, dt_), np.zeros((O - len(a), *np.shape(a)[1:]), dt_)])
+    Rn, pn, vn = R_wb.copy(), p_w.copy(), v_w.copy()
+    for c in range(1, n_kf):
+        Rn[c] = Rn[c] @ so3.exp(torch.from_numpy(
+            rng.normal(0, 0.02, 3).astype(np.float32))).numpy()
+        pn[c] += rng.normal(0, 0.02, 3).astype(np.float32)
+        vn[c] += rng.normal(0, 0.1, 3).astype(np.float32)
+    fixed = np.zeros(n_kf, bool)
+    fixed[0] = True
+    prob = dict(R_wb=Rn, p_w=pn, v_w=vn, bg=np.zeros((n_kf, 3), np.float32),
+                ba=np.zeros((n_kf, 3), np.float32),
+                points=(pts + rng.normal(0, 0.03, pts.shape)).astype(
+                    np.float32), point_valid=np.ones(n_pts, bool),
+                obs_cam=padded(oc, np.int32), obs_pt=padded(op, np.int32),
+                obs_uv=padded(ouv, np.float32),
+                obs_w=np.ones(O, np.float32), obs_valid=valid,
+                edge_i=np.arange(n_kf - 1, dtype=np.int32),
+                edge_j=np.arange(1, n_kf, dtype=np.int32),
+                edge_pre=tuple(x.numpy() for x in pre),
+                edge_valid=np.ones(n_kf - 1, bool), fixed_cam=fixed)
+    return prob, np.asarray(traj["gravity"], np.float32)
+
+
+def vi_problem_of_map(snap, world=SHARD_WORLD):
+    """The racing inertial global BA's problem on a final map
+    (``inertial.build_full_viba_problem`` over its temporal chain, as 10c
+    builds it), its observations padded to a multiple of the world size;
+    numpy fields, the extrinsic and the gravity."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.imu.preintegration import (
+        ImuCalib)
+    from orb_slam3_detailed_comments_tpu_torch.mapping.mapstore import (
+        MapStore)
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import inertial
+    from orb_slam3_detailed_comments_tpu_torch.pipeline.local_mapping import (
+        full_obs_cap)
+    m = MapStore.from_numpy(snap["map"], snap["cfg"], device="cpu")
+    calib = ImuCalib.default()
+    chain = [int(k) for k in m.temporal_chain()]
+    prob, meta = inertial.build_full_viba_problem(
+        m, chain, calib, max_points=m.cfg.max_pt // 2,
+        max_obs=full_obs_cap(m))
+    d = {k: (tuple(x.numpy() for x in v) if k == "edge_pre" else v.numpy())
+         for k, v in prob._asdict().items()}
+    O = d["obs_cam"].shape[0]
+    pad = -O % world
+    for k in ("obs_cam", "obs_pt", "obs_uv", "obs_w", "obs_valid"):
+        d[k] = np.concatenate([d[k], np.zeros((pad, *d[k].shape[1:]),
+                                              d[k].dtype)])
+    g = inertial.gravity_vec(torch.device("cpu")).numpy()
+    return (d, np.ascontiguousarray(meta["R_bc"].T).astype(np.float32),
+            np.asarray(meta["t_cb"], np.float32), g)
+
+
+def sharded_child(rank, world, init, in_path, out_dir, device,
+                  backend="gloo"):
+    """One process of 13c on device (under gloo every rank on cuda:0 on
+    the card, under NCCL rank r on cuda:r): the sharded step, PCG and
+    inertial BA at the world size beside rank 0's world-1 solves, timed;
+    then rank 0's racing global BA with dist_gba, the other ranks
+    serving."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from orb_slam3_detailed_comments_tpu_torch import device as device_mod
+    from orb_slam3_detailed_comments_tpu_torch.imu import preintegration
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.optim import (ba, schur_pcg,
+                                                             vi_ba)
+    from orb_slam3_detailed_comments_tpu_torch.parallel import dist_ba
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
+    dev = device_mod.resolve(f"cuda:{rank}" if backend == "nccl" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group(backend, init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    group = dist.group.WORLD
+    with open(in_path, "rb") as f:
+        inp = pickle.load(f)
+    cam = cameras.pinhole(**CAM_KW)
+    out = {}
+
+    def clock(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out.setdefault("ms", {})[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def np_tree(x):
+        return ({k: np_tree(v) for k, v in x._asdict().items()}
+                if hasattr(x, "_fields") else
+                [np_tree(v) for v in x] if isinstance(x, (tuple, list))
+                else x.cpu().numpy())
+
+    try:
+        step_prob = ba.problem_from_numpy(inp["step"], dev)
+        pcg_prob = ba.problem_from_numpy(inp["pcg"], dev)
+        vp = vi_ba.VIBAProblem(**{
+            k: (preintegration.Preintegrated(*[torch.from_numpy(x).to(dev)
+                                               for x in v])
+                if k == "edge_pre" else torch.from_numpy(v).to(dev))
+            for k, v in inp["viba"].items()})
+        R_cb, t_cb, g = (torch.from_numpy(x).to(dev)
+                         for x in (inp["R_cb"], inp["t_cb"], inp["g"]))
+        step = dist_ba.make_dist_ba_step(cam, group)
+        pcg = dist_ba.make_dist_gba_pcg(cam, group, iters=3, cg_iters=20)
+        viba = dist_ba.make_dist_viba_solve(cam, group, iters=5)
+        for turn in range(2):               # the first builds, the second
+            tag = "" if turn else "_first"  # is timed
+            out["step2"] = np_tree(clock("step2" + tag,
+                                         lambda: step(*step_prob)))
+            out["pcg2"] = np_tree(clock("pcg2" + tag, lambda: pcg(pcg_prob)))
+            out["viba2"] = np_tree(clock("viba2" + tag, lambda: viba(
+                vp, R_cb, t_cb, g)))
+            if rank == 0:
+                one_step = dist_ba.make_dist_ba_step(cam, None)
+                out["step1"] = np_tree(clock("step1" + tag,
+                                             lambda: one_step(*step_prob)))
+                out["pcg1"] = np_tree(clock("pcg1" + tag, lambda: (
+                    schur_pcg.ba_solve_pcg(pcg_prob, cam, iters=3,
+                                           cg_iters=20))))
+                out["viba1"] = np_tree(clock("viba1" + tag, lambda: (
+                    vi_ba.vi_ba_solve(vp, cam, R_cb, t_cb, g, iters=5))))
+            dist.barrier(group)
+        if rank == 0:
+            import threading
+            m, t_true = scene_map(np.random.default_rng(7), cam, dev)
+            err0 = float(np.abs(m.kf_t[1:4] - t_true[1:4]).max())
+            lc = loop_closing.LoopCloser(
+                m, cam, None, loop_closing.LoopClosingConfig(
+                    async_gba=True, gba_iters=6, gba_chunk=3), group=group)
+            lc.map_lock = threading.RLock()
+            out["gba_sharded"] = lc.gba_group(1024) is not None
+            clock("racing_gba", lambda: (lc._launch_global_ba(
+                [0, 1, 2, 3], anchor=[0]), lc.wait_gba()))
+            err1 = float(np.abs(m.kf_t[1:4] - t_true[1:4]).max())
+            snap_t, v0 = m.kf_t.copy(), m.version
+            lc.cfg.gba_iters, lc.cfg.gba_chunk = 400, 1
+            lc._launch_global_ba([0, 1, 2, 3], anchor=[0])
+            lc.abort_gba()
+            out["gba"] = dict(err0=err0, err1=err1, runs=lc.n_gba_runs,
+                              aborted=lc.n_gba_aborted,
+                              kept=bool(np.array_equal(m.kf_t, snap_t))
+                              and m.version == v0,
+                              log=lc.gba_log)
+            dist_ba.shutdown(group)
+        else:
+            out["served"] = dist_ba.serve(cam, group, device=dev)
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path(dev, world=SHARD_WORLD, timeout=300.0,
+                 backend="gloo"):
+    """13c: the sharded solves at world 2 on the one card (two child
+    processes on cuda:0 over gloo, spawned; this process starts no
+    group; with backend "nccl", world processes on as many cards, as
+    scripts/sharded_nccl.py runs them): make_dist_ba_step
+    (tests/test_parallel.py's problem, C = 6),
+    make_dist_gba_pcg at the deployment shape (C = 192, 16,384 points,
+    65,536 observations, 3 iterations of 20 CG steps) and
+    make_dist_viba_solve (on 9a's final map, or the synthetic chain when
+    phase 9 did not run), each held to rank 0's world-1 solve on the card
+    at the JAX tests' tolerances (SHARD_TOL), both ranks' results equal;
+    the clocks of world 2 and world 1; then the visual racing global BA
+    with dist_gba and rank 1 serving: one run applied that halves the
+    keyframes' error, the aborted one leaving the map equal to the bit."""
+    import pickle
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    cam = cameras.pinhole(**CAM_KW)
+    rng = np.random.default_rng(42)
+    inp = dict(step=ba_problem_arrays(rng, cam, 6, 128, 1024),
+               pcg=ba_problem_arrays(rng, cam, 192, 16384, 65536))
+    if "9a" in FINAL_MAPS:
+        inp["viba"], inp["R_cb"], inp["t_cb"], inp["g"] = vi_problem_of_map(
+            FINAL_MAPS["9a"], world)
+        viba_src = "9a's final map"
+    else:
+        inp["viba"], inp["g"] = synthetic_vi_chain(rng, world=world)
+        inp["R_cb"], inp["t_cb"] = np.eye(3, dtype=np.float32), np.zeros(
+            3, np.float32)
+        viba_src = "the synthetic chain"
+    work = REPO / "build" / "phase13"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with open(work / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        sharded_child, args=(world, str(work / "rendezvous"),
+                             str(work / "inputs.pkl"), str(work),
+                             "cuda:0" if dev.type == "cuda" else "cpu",
+                             backend),
+        nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"13c: the processes did not end within "
+                                     f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    outs = []
+    for r in range(world):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    o = outs[0]
+    err = dict(
+        ba_step=max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                    for a, b in zip(o["step2"][1:], o["step1"][1:])),
+        gba_pcg=max(float(np.abs(o["pcg2"][k] - o["pcg1"][k]).max())
+                    for k in ("kf_t", "points")),
+        viba_p=float(np.abs(o["viba2"]["p_w"] - o["viba1"]["p_w"]).max()),
+        viba_v=float(np.abs(o["viba2"]["v_w"] - o["viba1"]["v_w"]).max()))
+    p = inp["pcg"]
+    pc = (np.einsum("oij,oj->oi", o["pcg2"]["kf_R"][p["obs_cam"]],
+                    o["pcg2"]["points"][p["obs_pt"]])
+          + o["pcg2"]["kf_t"][p["obs_cam"]])
+    pred = cameras.project(cam, torch.from_numpy(pc)).numpy()
+    rms = float(np.sqrt(np.mean(np.sum((pred - p["obs_uv"]) ** 2, -1))))
+    same = all(np.array_equal(np.asarray(a), np.asarray(b))
+               for key in ("step2", "pcg2", "viba2") for x in outs[1:]
+               for a, b in zip(_leaves(o[key]), _leaves(x[key])))
+    gba = o["gba"]
+    rec = dict(world=world, backend=backend, max_err=err, tol=SHARD_TOL,
+               pcg_rms_px=rms,
+               ranks_equal=same, viba_on=viba_src,
+               viba_shape=dict(C=int(inp["viba"]["R_wb"].shape[0]),
+                               O=int(inp["viba"]["obs_cam"].shape[0])),
+               ms=o["ms"], ms_rank1=outs[1]["ms"], served=outs[1]["served"],
+               racing_gba={k: v for k, v in gba.items() if k != "log"},
+               racing_gba_log=gba["log"], sharded=o["gba_sharded"],
+               seconds=time.perf_counter() - t0)
+    log(f"13c sharded solves at world {world} over {backend} against world "
+        f"1: largest differences {err} (tolerances {SHARD_TOL}); PCG at "
+        f"C = 192 rms {rms:.4f} px; every rank equal {same}; inertial BA on "
+        f"{viba_src} {rec['viba_shape']}; clocks (ms) {o['ms']}; racing "
+        f"global BA sharded {o['gba_sharded']}: error {gba['err0']:.4f} -> "
+        f"{gba['err1']:.4f} m, runs {gba['runs']}, aborted {gba['aborted']}, "
+        f"map kept on abort {gba['kept']}; rank 1 served {rec['served']} "
+        f"jobs; {rec['seconds']:.1f} s")
+    bad = [k for k, v in err.items() if not v <= SHARD_TOL[k]]
+    if (bad or not rms < 1.0 or not same or not o["gba_sharded"]
+            or gba["runs"] != 1 or gba["aborted"] < 1 or not gba["kept"]
+            or not gba["err1"] < 0.5 * gba["err0"] or rec["served"] < 5):
+        raise AssertionError(f"13c missed its gates ({bad}): {rec}")
+    return rec
+
+
+def _leaves(tree):
+    """The leaves of a nested dict / list of arrays, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def multi_device_phase(dev) -> dict:
+    """Phase 13: 13a, 13b and 13c, each sub-phase's time logged."""
+    log("phase 13 the multi-device layer: 13a batched extraction, 13b "
+        "System.track_monocular_batch, 13c the sharded solves in two "
+        "processes on the card")
+    out, t = {"seconds": {}}, [time.perf_counter()]
+    for name, key, run_sub in (
+            ("13a", "extract", lambda: batch_extract_path(dev)),
+            ("13b", "ingest", lambda: batch_ingest_path(dev)),
+            ("13c", "sharded", lambda: sharded_path(dev))):
+        out[key] = run_sub()
+        t.append(time.perf_counter())
+        out["seconds"][name] = t[-1] - t[-2]
+        log(f"{name} took {t[-1] - t[-2]:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
-    """argv: optionally ``--phases 3,9,10,11,12`` to run only those of
-    phases 3, 9, 10, 11 and 12 (phases 1 and 2 always run; the last lines
-    then carry what ran)."""
+    """argv: optionally ``--phases 3,9,10,11,12,13`` to run only those of
+    phases 3, 9, 10, 11, 12 and 13 (phases 1 and 2 always run; the last
+    lines then carry what ran)."""
     import torch
     argv = sys.argv[1:] if argv is None else argv
     phases = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = {p.strip() for p in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--phases 3,9,10,11,12]",
+        print("usage: chip_smoke.py [--phases 3,9,10,11,12,13]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4935,7 +5697,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, phases=None) -> int:
-    """Phases 1-12 on the card dev (or 1, 2 and those named in phases);
+    """Phases 1-13 on the card dev (or 1, 2 and those named in phases);
     raises on the first failure."""
     import torch
     t_start = time.perf_counter()
@@ -5005,6 +5767,8 @@ def run(dev, phases=None) -> int:
     phase_done("phase 11")
     ph12 = host_phase(dev)
     phase_done("phase 12")
+    ph13 = multi_device_phase(dev)
+    phase_done("phase 13")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
@@ -5013,7 +5777,9 @@ def run(dev, phases=None) -> int:
              ("imu_rgbd", imu["rgbd"]), ("async_mono", ph10["mono"]),
              ("async_loop", ph10["loop"]),
              ("rgbd_merge", ph11["rgbd_merge"]), ("vi_loop", ph11["vi_loop"]),
-             ("host_surfaces", ph12["surfaces"]))
+             ("host_surfaces", ph12["surfaces"]),
+             ("batch_extract", ph13["extract"]),
+             ("batch_ingest", ph13["ingest"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -5036,7 +5802,7 @@ def run(dev, phases=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms", "plain_event_ms", "atlas", "stereo", "callers",
-            "unit", "launches_by_path", "real_frame_ms")
+            "batched", "unit", "launches_by_path", "real_frame_ms")
     summary = dict(frame_ms_median=res["frame_ms_median"],
                    frame_ms_p90=res["frame_ms_p90"],
                    host_syncs_per_frame=res["syncs"], **res["profile"])
@@ -5062,6 +5828,7 @@ def run(dev, phases=None) -> int:
                     "phase10": phase_summary(ph10),
                     "phase11": phase_summary(ph11),
                     "phase12": phase_summary(ph12),
+                    "phase13": phase_summary(ph13),
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
@@ -5138,7 +5905,7 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
 
 
 def run_some(dev, phases, rates, card, t_start) -> int:
-    """Only the phases named (3, 9, 10, 11 and 12; 10 runs 9a first for its map and
+    """Only the phases named (3, 9, 10, 11, 12 and 13; 10 runs 9a first for its map and
     a synchronous run of its own in place of phase 6's): the records of
     the paths that ran, and the last lines as in a whole run."""
     import torch
@@ -5157,6 +5924,8 @@ def run_some(dev, phases, rates, card, t_start) -> int:
         out["phase11"] = phase_summary(metric_loop_phase(dev))
     if "12" in phases:
         out["phase12"] = phase_summary(host_phase(dev))
+    if "13" in phases:
+        out["phase13"] = phase_summary(multi_device_phase(dev))
     log(f"the script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({k: (v if k != "phase9" else {
         n: {kk: vv for kk, vv in r.items() if kk != "how"}

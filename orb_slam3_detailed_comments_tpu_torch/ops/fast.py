@@ -139,23 +139,38 @@ def select_levels(score_maps, lay) -> Keypoints:
     candidates sit in one row of an [L, M] key, padded with +inf keys
     (score 0, yx 0, invalid) to M = max_l max(C_l * k, n_l); one stable
     sort orders every row, and the padding sorts after every real
-    candidate, as the per-level version's padding of a short level does."""
+    candidate, as the per-level version's padding of a short level does.
+    The one-frame case of ``select_levels_batch``."""
+    kps = select_levels_batch(score_maps, lay, 1)
+    return Keypoints(kps.yx[0], kps.score[0], kps.valid[0])
+
+
+def select_levels_batch(score_maps, lay, n_frames: int) -> Keypoints:
+    """``select_levels`` for a batch of frames of one layout at once:
+    score_maps holds the frames' level maps frame after frame (n_frames x
+    L maps), and every frame's cells ride one ``cell_topk_levels`` call;
+    the [B, L, M] key is sorted row by row, so each frame gets exactly what
+    ``select_levels`` gives it. Returns Keypoints with a leading axis of
+    n_frames."""
     cfg = lay.cfg
     cell, k = cfg.cell, cfg.k_per_cell
-    if tuple(tuple(s.shape) for s in score_maps) != lay.shapes:
+    B = n_frames
+    if tuple(tuple(s.shape) for s in score_maps) != lay.shapes * B:
         raise ValueError("select_levels: score maps not of the layout's "
                          "level shapes")
-    top_s, top_i = topk.cell_topk_levels(score_maps, lay.contents,
+    top_s, top_i = topk.cell_topk_levels(score_maps, lay.contents * B,
                                          cfg.margin, k, cell)
-    cand = torch.where(lay.pad, 0.0, top_s.reshape(-1)[lay.src])  # [L, M]
+    top_s, top_i = top_s.reshape(B, -1), top_i.reshape(B, -1)
+    cand = torch.where(lay.pad, 0.0, top_s[:, lay.src])     # [B, L, M]
     ok = (cand >= cfg.min_th) & ~lay.pad
     # rank-major key: lower rank first, then higher score (score <= 255)
     key = torch.where(ok, lay.rank - cand, float("inf"))
-    order = torch.sort(-key, dim=1, descending=True, stable=True)[1]
-    sel = order.reshape(-1)[lay.cut] + lay.base                 # [N] slots
-    ti = top_i.reshape(-1)[lay.src.reshape(-1)[sel]].long()
+    order = torch.sort(-key, dim=2, descending=True, stable=True)[1]
+    sel = order.reshape(B, -1)[:, lay.cut] + lay.base       # [B, N] slots
+    ti = torch.gather(top_i, 1, lay.src.reshape(-1)[sel]).long()
     on = ~lay.pad.reshape(-1)[sel]
     yx = torch.stack([(lay.y0[sel] + ti // cell) * on,
                       (lay.x0[sel] + ti % cell) * on], dim=-1)
-    return Keypoints(yx=yx.to(torch.int32), score=cand.reshape(-1)[sel],
-                     valid=ok.reshape(-1)[sel])
+    return Keypoints(yx=yx.to(torch.int32),
+                     score=torch.gather(cand.reshape(B, -1), 1, sel),
+                     valid=torch.gather(ok.reshape(B, -1), 1, sel))

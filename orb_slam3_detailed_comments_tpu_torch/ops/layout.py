@@ -60,6 +60,12 @@ class FrameLayout(NamedTuple):
     x0: torch.Tensor      # [L * M] int64
     cut: torch.Tensor     # [N] int64: slots l * M + j, j < n_l
     base: torch.Tensor    # [N] int64: l * M of each of them
+    # a batch of frames (``extractor.extract_batch``): each keypoint's level
+    # in the frame's level maps laid end to end, n_px pixels a frame
+    map_off: torch.Tensor  # [N] int64: the level's first pixel
+    lh: torch.Tensor      # [N] int64: the level's height
+    lw: torch.Tensor      # [N] int64: ... and width
+    n_px: int
 
 
 @functools.lru_cache(maxsize=8)
@@ -100,4 +106,9 @@ def frame_layout(cfg, h: int, w: int, device: torch.device) -> FrameLayout:
         cut=up(np.concatenate([l * M + np.arange(n)
                                for l, n in enumerate(budgets)])),
         base=up(np.concatenate([np.full(n, l * M)
-                                for l, n in enumerate(budgets)])))
+                                for l, n in enumerate(budgets)])),
+        map_off=up(per(np.cumsum([0] + [h * w for h, w in shapes[:-1]]),
+                       np.int64)),
+        lh=up(per([h for h, _ in shapes], np.int64)),
+        lw=up(per([w for _, w in shapes], np.int64)),
+        n_px=sum(h * w for h, w in shapes))

@@ -3,6 +3,9 @@
 Counterpart of ``ops/pyramid.py`` of the JAX package (reference:
 ORBextractor::ComputePyramid, src/ORBextractor.cc:1687). Level shapes are
 derived from the base resolution; all levels are float32 in [0, 255].
+``build_pyramid`` takes one image [H, W] or a batch [B, H, W]: every step
+is an elementwise product or a gather, so each frame of a batch gets its
+own pyramid bit for bit.
 """
 from __future__ import annotations
 
@@ -83,30 +86,31 @@ def resize_bilinear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     CPU, and of the JAX package there, to the bit but where the float64
     sum rounds onto a float32 tie; on the card the matrix form's library
     rounds otherwise (``tests/test_torch_extractor.py``)."""
-    ch, cw = img.shape
+    ch, cw = img.shape[-2:]
     lo, hi, wl, wh = _taps_on(nh, ch, img.device)
-    rows = _two_tap(img[lo], img[hi], wl[:, None], wh[:, None])
+    rows = _two_tap(img[..., lo, :], img[..., hi, :], wl[:, None],
+                    wh[:, None])
     lo, hi, wl, wh = _taps_on(nw, cw, img.device)
-    return _two_tap(rows[:, lo], rows[:, hi], wl[None, :], wh[None, :])
+    return _two_tap(rows[..., lo], rows[..., hi], wl[None, :], wh[None, :])
 
 
 def _pad_edge(img: torch.Tensor, ph_before: int, ph_after: int,
               pw_before: int, pw_after: int) -> torch.Tensor:
-    """Edge-replicating pad of a 2-D tensor (numpy's mode="edge")."""
-    h, w = img.shape
+    """Edge-replicating pad of the last two axes (numpy's mode="edge")."""
+    h, w = img.shape[-2:]
     rows = torch.clamp(torch.arange(-ph_before, h + ph_after,
                                     device=img.device), 0, h - 1)
     cols = torch.clamp(torch.arange(-pw_before, w + pw_after,
                                     device=img.device), 0, w - 1)
-    return img[rows][:, cols]
+    return img[..., rows, :][..., cols]
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int = DEFAULT_N_LEVELS,
                   scale: float = DEFAULT_SCALE) -> list:
     """img [H, W] float32 -> list of [h_l, w_l] float32 levels, each resized
     from the previous (cascaded, like the reference), padded to the level
-    shape by edge replication."""
-    h, w = img.shape
+    shape by edge replication; img [B, H, W] -> levels [B, h_l, w_l]."""
+    h, w = img.shape[-2:]
     shapes = level_shapes(h, w, n_levels, scale)
     levels = []
     cur = img

@@ -43,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import device as device_mod
+from .. import comm, device as device_mod
 from ..lie import SE3, se3
 from ..models import cameras
 from . import reproj
@@ -389,12 +389,17 @@ def _coo_robust_cost(prob: BAProblem, cam, kf_R, kf_t, points, obs_valid,
 
 
 def segment_sum(values: torch.Tensor, segments: torch.Tensor,
-                n: int) -> torch.Tensor:
+                n: int, group=None) -> torch.Tensor:
     """Sum of the rows of values [O, ...] per segment id [O] -> [n, ...],
-    accumulated in float64 and rounded once to the values' type."""
+    accumulated in float64 and rounded once to the values' type. With a
+    process group (``comm``) each rank holds a block of the
+    observations: the float64 partial sums are summed over the group
+    before the rounding."""
     out = torch.zeros((n, *values.shape[1:]), dtype=torch.float64,
                       device=values.device)
     out.index_add_(0, segments.long(), values.double())
+    if group is not None:
+        comm.all_reduce(out, group)
     return out.to(values.dtype)
 
 
@@ -409,14 +414,17 @@ def _jt_r(J: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 def coo_normal_equations(prob: BAProblem, cam: cameras.CameraParams,
-                         kf_R, kf_t, points, obs_valid, delta2: float):
+                         kf_R, kf_t, points, obs_valid, delta2: float,
+                         group=None):
     """The COO tier's robust Gauss-Newton system at one state, summed per
     observation: U [C, 6, 6], b_c [C, 6], V [P, 3, 3], b_p [P, 3] and the
     coupling W [P, C, 6, 3], in the state's type. Each observation's terms
     are evaluated in float64 from the state: at a converged state the
     per-point sums of J^T r cancel to a small fraction of their terms, and
     float32 terms (FMA and matmul order) left the card's and the CPU's
-    b_p apart by up to 1.8e-4 of its largest entry."""
+    b_p apart by up to 1.8e-4 of its largest entry. With a process group
+    the observations are this rank's block, and every sum is reduced over
+    the group (``segment_sum``)."""
     C = prob.kf_R.shape[0]
     P = prob.points.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
@@ -427,11 +435,11 @@ def coo_normal_equations(prob: BAProblem, cam: cameras.CameraParams,
     w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
     JcW = Jc * w[:, None, None]
     JpW = Jp * w[:, None, None]
-    U = segment_sum(_outer2(JcW, Jc), oc, C)
-    b_c = segment_sum(_jt_r(JcW, r), oc, C)
-    V = segment_sum(_outer2(JpW, Jp), op, P)
-    b_p = segment_sum(_jt_r(JpW, r), op, P)
-    Wd = segment_sum(_outer2(JcW, Jp), op * C + oc, P * C).reshape(
+    U = segment_sum(_outer2(JcW, Jc), oc, C, group)
+    b_c = segment_sum(_jt_r(JcW, r), oc, C, group)
+    V = segment_sum(_outer2(JpW, Jp), op, P, group)
+    b_p = segment_sum(_jt_r(JpW, r), op, P, group)
+    Wd = segment_sum(_outer2(JcW, Jp), op * C + oc, P * C, group).reshape(
         P, C, 6, 3)
     return tuple(x.to(points.dtype) for x in (U, b_c, V, b_p, Wd))
 

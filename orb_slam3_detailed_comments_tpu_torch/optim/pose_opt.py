@@ -81,6 +81,23 @@ def pose_optimization(T_cw0: SE3, X_w: torch.Tensor, uv: torch.Tensor,
                          torch.sum(inlier.to(torch.int32)))
 
 
+def pose_optimization_batch(T_cw0: SE3, X_w: torch.Tensor, uv: torch.Tensor,
+                            inv_sigma2: torch.Tensor, valid: torch.Tensor,
+                            cam: cameras.CameraParams, iters: int = 10,
+                            rounds: int = 4) -> PoseOptResult:
+    """``pose_optimization`` over a leading batch of F frames, each frame
+    its own solve (``torch.func.vmap``: every frame's done flag is its
+    own). T_cw0: R [F, 3, 3], t [F, 3]; X_w [F, M, 3], uv [F, M, 2],
+    inv_sigma2 [F, M], valid [F, M]. The result has the leading F."""
+    def one(R, t, X, u, w, v):
+        res = pose_optimization(SE3(R, t), X, u, w, v, cam, iters, rounds)
+        return res.T_cw.R, res.T_cw.t, res.inlier, res.n_inliers
+
+    R, t, inlier, n = torch.func.vmap(one)(T_cw0.R, T_cw0.t, X_w, uv,
+                                           inv_sigma2, valid)
+    return PoseOptResult(SE3(R, t), inlier, n)
+
+
 class PoseInertialResult(NamedTuple):
     T_cw: SE3
     v_w: torch.Tensor        # [3] optimised world velocity

@@ -14,11 +14,21 @@ Where this differs from the JAX code: the segment sums accumulate in
 float64 (``ba.segment_sum``); the CG loop and the LM loop run their full
 counts with a sticky stop flag on the device (the JAX ``while_loop``s stop
 early), so a solve makes no host sync.
+
+With a process group (``group``, the JAX code's mesh ``axis``) the
+observations are this rank's block while poses, points and masks are
+whole on every rank: the float64 partials of each segment sum and the
+robust cost are summed over the group before the rounding, at the JAX
+code's ``_psum`` sites, so every rank walks the same LM and CG steps
+(``parallel/dist_ba.make_dist_gba_pcg``). Each reduction then waits on
+the host, so the CG and LM loops are left at their stop flags (every rank
+reads the same flag), with the results of the full counts.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import comm
 from ..lie import SE3, se3
 from ..models import cameras
 from . import reproj
@@ -35,25 +45,30 @@ def _jc_dot(J: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                         torch.sum(J[:, 1, :] * x, -1)], dim=-1)
 
 
-def _schur_matvec(x, Ud, Vinv, Jc, Jp, w, oc, op, free):
-    """S x for x [C, 6]; fixed cameras act as identity rows."""
+def _schur_matvec(x, Ud, Vinv, Jc, Jp, w, oc, op, free, group=None):
+    """S x for x [C, 6]; fixed cameras act as identity rows. Under a
+    group the per-point partials are reduced before V^-1 and the
+    per-camera ones after it."""
     C, P = Ud.shape[0], Vinv.shape[0]
     xf = x * free[:, None]
     a = _jc_dot(Jc, xf[oc]) * w[:, None]
-    y = torch.einsum("pij,pj->pi", Vinv, segment_sum(_jt_r(Jp, a), op, P))
+    y = torch.einsum("pij,pj->pi", Vinv,
+                     segment_sum(_jt_r(Jp, a), op, P, group))
     b = _jc_dot(Jp, y[op]) * w[:, None]
-    Sx = torch.einsum("cij,cj->ci", Ud, xf) - segment_sum(_jt_r(Jc, b), oc, C)
+    Sx = (torch.einsum("cij,cj->ci", Ud, xf)
+          - segment_sum(_jt_r(Jc, b), oc, C, group))
     return Sx * free[:, None] + x * (1.0 - free[:, None])
 
 
-def _block_jacobi(Ud, Vinv, Jc, Jp, w, oc, op, free):
+def _block_jacobi(Ud, Vinv, Jc, Jp, w, oc, op, free, group=None):
     """The exact diagonal blocks of S, inverted [C, 6, 6]: a point is
     observed at most once per camera, so block c is U_d,c minus a plain
-    per-observation sum of K_o V^-1 K_o^T, K_o = Jc^T w Jp."""
+    per-observation sum of K_o V^-1 K_o^T, K_o = Jc^T w Jp (under a group
+    too: each (camera, point) pair is one observation on one rank)."""
     C = Ud.shape[0]
     K = _outer2(Jc * w[:, None, None], Jp)                  # [O, 6, 3]
     KVKt = K @ Vinv[op] @ K.transpose(1, 2)
-    M = Ud - segment_sum(KVKt, oc, C)
+    M = Ud - segment_sum(KVKt, oc, C, group)
     eye = torch.eye(6, dtype=M.dtype, device=M.device)
     M = M * free[:, None, None] + eye * (1.0 - free)[:, None, None]
     tr = torch.einsum("cii->c", M)
@@ -61,9 +76,10 @@ def _block_jacobi(Ud, Vinv, Jc, Jp, w, oc, op, free):
     return torch.linalg.inv(M)
 
 
-def _pcg(rhs, Minv, matvec, iters: int):
+def _pcg(rhs, Minv, matvec, iters: int, leave: bool = False):
     """Preconditioned CG on S x = rhs, stopping at ||r|| <= _CG_RTOL
-    ||rhs|| (a sticky flag freezes the state from then on)."""
+    ||rhs|| (a sticky flag freezes the state from then on; with leave,
+    the loop is left there instead, on the host, with the same x)."""
     tol = _CG_RTOL * torch.sqrt(torch.sum(rhs * rhs)) + 1e-12
 
     def apply_m(r):
@@ -76,6 +92,8 @@ def _pcg(rhs, Minv, matvec, iters: int):
     rz = torch.sum(r * z)
     for _ in range(iters):
         go = torch.sqrt(torch.sum(r * r)) > tol
+        if leave and not bool(go):
+            break
         Ap = matvec(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x_n = x + alpha * p
@@ -90,11 +108,27 @@ def _pcg(rhs, Minv, matvec, iters: int):
     return x
 
 
+def _robust_cost(prob, cam, kf_R, kf_t, points, obs_valid, delta2, group):
+    """``ba._coo_robust_cost``, summed over the group under one."""
+    cost = _coo_robust_cost(prob, cam, kf_R, kf_t, points, obs_valid, delta2)
+    if group is None:
+        return cost
+    return comm.all_reduce(cost.double(), group).to(cost.dtype)
+
+
 def ba_solve_pcg(prob: BAProblem, cam: cameras.CameraParams, iters: int = 10,
                  delta2: float = reproj.CHI2_MONO, lm_lambda0: float = 1e-4,
-                 cg_iters: int = 100) -> BAResult:
+                 cg_iters: int = 100, group=None) -> BAResult:
     """LM bundle adjustment with an inner Schur-PCG; the API of
-    ``ba.ba_solve``, for C beyond the dense solvers' reach."""
+    ``ba.ba_solve``, for C beyond the dense solvers' reach. group: a
+    process group of which each rank passes its own block of the
+    observations (the module's docstring); None, or a group of one
+    process, solves in this process alone."""
+    group = comm.active(group)
+    # under a group every reduction waits on the host anyway: the loops are
+    # left where the sticky flags would freeze them, as the JAX
+    # while_loops are, which skips the frozen iterations' collectives
+    leave = group is not None
     C = prob.kf_R.shape[0]
     P = prob.points.shape[0]
     dev = prob.points.device
@@ -108,38 +142,41 @@ def ba_solve_pcg(prob: BAProblem, cam: cameras.CameraParams, iters: int = 10,
         w = prob.obs_w * reproj.huber_weight(chi2, delta2) * ok
         JcW = Jc * w[:, None, None]
         JpW = Jp * w[:, None, None]
-        U = segment_sum(_outer2(JcW, Jc), oc, C)
-        b_c = segment_sum(_jt_r(JcW, r), oc, C)
-        V = segment_sum(_outer2(JpW, Jp), op, P)
-        b_p = segment_sum(_jt_r(JpW, r), op, P)
+        U = segment_sum(_outer2(JcW, Jc), oc, C, group)
+        b_c = segment_sum(_jt_r(JcW, r), oc, C, group)
+        V = segment_sum(_outer2(JpW, Jp), op, P, group)
+        b_p = segment_sum(_jt_r(JpW, r), op, P, group)
         Ud, Vd = _damped_blocks(U, V, lam)
         Vinv = torch.where(prob.point_valid[:, None, None], _inv3x3(Vd),
                            torch.zeros_like(Vd))
         y = torch.einsum("pij,pj->pi", Vinv, b_p)
         b = _jc_dot(Jp, y[op]) * w[:, None]
-        rhs = (b_c - segment_sum(_jt_r(Jc, b), oc, C)) * free[:, None]
-        Minv = _block_jacobi(Ud, Vinv, Jc, Jp, w, oc, op, free)
+        rhs = (b_c - segment_sum(_jt_r(Jc, b), oc, C, group)) * free[:, None]
+        Minv = _block_jacobi(Ud, Vinv, Jc, Jp, w, oc, op, free, group)
         dc = _pcg(rhs, Minv,
                   lambda x: _schur_matvec(x, Ud, Vinv, Jc, Jp, w, oc, op,
-                                          free), cg_iters) * free[:, None]
+                                          free, group),
+                  cg_iters, leave) * free[:, None]
         a = _jc_dot(Jc, dc[oc]) * w[:, None]
         dp = torch.einsum("pij,pj->pi", Vinv,
-                          b_p - segment_sum(_jt_r(Jp, a), op, P))
+                          b_p - segment_sum(_jt_r(Jp, a), op, P, group))
         dp = torch.where(prob.point_valid[:, None], dp, torch.zeros_like(dp))
         T_new = se3.exp(dc).compose(SE3(kf_R, kf_t))
         pts_new = points + dp
-        new_cost = _coo_robust_cost(prob, cam, T_new.R, T_new.t, pts_new,
-                                    obs_valid, delta2)
+        new_cost = _robust_cost(prob, cam, T_new.R, T_new.t, pts_new,
+                                obs_valid, delta2, group)
         accept = ((new_cost < cost) & torch.isfinite(new_cost)
                   & torch.isfinite(dc).all() & torch.isfinite(dp).all())
         return T_new, pts_new, new_cost, accept
 
     def run(kf_R, kf_t, points, obs_valid, n):
-        cost = _coo_robust_cost(prob, cam, kf_R, kf_t, points, obs_valid,
-                                delta2)
+        cost = _robust_cost(prob, cam, kf_R, kf_t, points, obs_valid, delta2,
+                            group)
         lam = torch.full((), lm_lambda0, dtype=torch.float32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(n):
+            if leave and bool(done):
+                break
             T_new, pts_new, new_cost, accept = lm_step(
                 kf_R, kf_t, points, obs_valid, lam, cost)
             take = accept & ~done

@@ -24,6 +24,12 @@ in float64. The accept test and the Cholesky decide on floats; in float64
 the card's sums in arbitrary order and the CPU's land on the same side.
 The states stay float32, as in JAX, and every iteration runs (the JAX loop
 has no early exit either), so a solve makes no host sync.
+
+With a process group (``group``, the JAX code's mesh ``axis``) the visual
+observations are this rank's block: the visual cost and the visual
+partials U6, b6, V, b_p and W are summed over the group in float64; the
+inertial edges, the bias walks and the dense [15C, 15C] solve stay whole
+on every rank (``parallel/dist_ba.make_dist_viba_solve``).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import comm
 from ..imu import factors
 from ..imu.preintegration import Preintegrated
 from ..lie import so3
@@ -126,7 +133,8 @@ def vi_ba_solve(prob: VIBAProblem, cam: cameras.CameraParams,
                 prior_gyro: float = 0.0, prior_acc: float = 0.0,
                 iters: int = 8, delta2: float = reproj.CHI2_MONO,
                 huber_imu2: float = 1e9,
-                fix_points: bool = False) -> VIBAResult:
+                fix_points: bool = False, group=None) -> VIBAResult:
+    group = comm.active(group)
     C = prob.R_wb.shape[0]
     P = prob.points.shape[0]
     E = prob.edge_i.shape[0]
@@ -163,6 +171,8 @@ def vi_ba_solve(prob: VIBAProblem, cam: cameras.CameraParams,
         chi2 = (torch.sum(r * r, -1) * pr.obs_w).double()
         ok = pr.obs_valid & depth_ok & pt_ok
         cv = torch.sum(torch.where(ok, _huber_rho(chi2, delta2), 0.0))
+        if group is not None:
+            comm.all_reduce(cv, group)
         re = _edge_residual(pr, gravity).double()
         c = torch.einsum("ei,eij,ej->e", re, info_e, re)
         ci = torch.sum(torch.where(prob.edge_valid,
@@ -190,6 +200,9 @@ def vi_ba_solve(prob: VIBAProblem, cam: cameras.CameraParams,
             0, op, ba_mod._jt_r(JpW, r))
         Wd = torch.zeros((P * C, 6, 3), dtype=f64, device=dev).index_add_(
             0, op * C + oc, ba_mod._outer2(JcW, Jp)).reshape(P, C, 6, 3)
+        if group is not None:
+            for part in (U6, b6, V, b_p, Wd):
+                comm.all_reduce(part, group)
 
         eye3 = torch.eye(3, dtype=f64, device=dev)
         Vd = V + lam * eye3 * torch.clamp(

@@ -42,10 +42,37 @@ def prepare_frame(img: torch.Tensor, cam: cameras.CameraParams,
                   cfg: extractor.OrbConfig,
                   frontend: str = "fused") -> PreparedFrame:
     """ORB extraction + undistortion (reference: Frame ctor,
-    Frame.cc:513,1003). Runs on img's device."""
+    Frame.cc:513,1003). Runs on img's device; on the fused front end the
+    one-frame case of ``prepare_frames``."""
+    if frontend == "fused":
+        return unbatch(prepare_frames(img[None], cam, cfg))[0]
     feat = extractor.extract(img, cfg, frontend)
     xyn = cameras.unproject(cam, feat.xy)[:, :2]
     return PreparedFrame(feat, cameras.undistort_points(cam, feat.xy), xyn)
+
+
+def prepare_frames(imgs: torch.Tensor, cam: cameras.CameraParams,
+                   cfg: extractor.OrbConfig) -> PreparedFrame:
+    """``prepare_frame`` for a batch of frames imgs [B, H, W] at once
+    (``extractor.extract_batch``, then the undistortion over the batch's
+    keypoints): a PreparedFrame with a leading axis of B whose frame b
+    equals ``prepare_frame(imgs[b], cam, cfg)`` bit for bit
+    (``unbatch`` splits it)."""
+    feat = extractor.extract_batch(imgs, cfg)
+    xy = feat.xy.reshape(-1, 2)
+    B = imgs.shape[0]
+    xyn = cameras.unproject(cam, xy)[:, :2].reshape(B, -1, 2)
+    return PreparedFrame(feat, cameras.undistort_points(cam, xy).reshape(
+        B, -1, 2), xyn)
+
+
+def unbatch(prep: PreparedFrame, n: int = 0) -> list:
+    """The first n frames (all if n is 0) of a batched PreparedFrame, each
+    a PreparedFrame of its own."""
+    n = n or prep.xyn.shape[0]
+    take = lambda tree, i: type(tree)(*[x[i] for x in tree])
+    return [PreparedFrame(take(prep.feat, i), prep.xy_ud[i], prep.xyn[i])
+            for i in range(n)]
 
 
 def prepare_frame_stereo(img_l: torch.Tensor, img_r: torch.Tensor,

@@ -24,8 +24,15 @@ RunGlobalBundleAdjustment's thread and its mbStopGBA abort flag): the
 snapshot is solved in chunks of ``gba_chunk`` iterations with an abort
 check between chunks, and the result is applied under the map lock with
 the drift carried to keyframes and points born during the solve
-(``apply_gba_with_propagation``).
-The sharded global BA (``dist_gba``) waits for ROADMAP item 1.7.
+(``apply_gba_with_propagation``). With ``dist_gba`` (the default) and a
+process group of several ranks (``group``), the racing global BA shards
+its observations over the group, as the JAX package shards them over its
+devices: the matrix-free PCG above ``ba._PCG_C_MIN`` cameras, sharded
+Schur steps and a one-process polish below it, the sharded full inertial
+BA on an inertial map (``parallel/dist_ba``; rank 0 runs the loop closer
+and leads, the other ranks ``dist_ba.serve``). Only the global BA's thread
+runs collectives; without a group, or with a group of one rank, the
+solve is this process's alone.
 
 The RANSAC minimal sets are drawn on the host from a generator seeded by
 the keyframe pair and uploaded, so the card and the CPU verify a pair on
@@ -40,12 +47,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import device as device_mod
+from .. import comm, device as device_mod
 from ..lie import SE3, Sim3, so3
 from ..mapping.mapstore import NO_POINT, MapStore
 from ..models import cameras
 from ..ops import extractor, matching
 from ..optim import ba, pose_graph, vi_ba
+from ..parallel import dist_ba
 from ..placerec import sim3_solver
 from ..placerec.keyframe_db import KeyFrameDatabase
 from ..placerec.pnp import sample_sets
@@ -53,8 +61,6 @@ from ..utils import timing
 from ..utils.counters import Counts
 from . import inertial, kernels
 from .local_mapping import build_ba_problem, full_obs_cap, run_local_ba
-
-ITEM_DIST = "1.7"      # ROADMAP.md: the sharded global BA (multi-device)
 
 # descriptor searches issued by place recognition, by caller: each
 # "sim3_match" and "reloc_match" is a mutual match_nn (two hamming_best2
@@ -84,7 +90,9 @@ class LoopClosingConfig:
     gba_rounds: int = 3           # build + solve rounds of the sync GBA
     async_gba: bool = False       # race the GBA against tracking on a thread
     gba_chunk: int = 5            # LM iterations between abort checks
-    dist_gba: bool = False        # sharded GBA: not ported (ROADMAP 1.7)
+    dist_gba: bool = True         # shard the racing GBA's observations
+                                  # over the loop closer's process group
+                                  # when it has more than one rank
 
 
 @dataclass
@@ -115,15 +123,12 @@ def sim3_np(S: Sim3):
 class LoopCloser:
     def __init__(self, mapstore: MapStore, cam: cameras.CameraParams,
                  kfdb: KeyFrameDatabase,
-                 cfg: LoopClosingConfig = LoopClosingConfig()):
-        if cfg.dist_gba:
-            raise NotImplementedError(
-                "the sharded global BA (dist_gba) is not ported to the "
-                f"PyTorch package yet (ROADMAP.md, queue item {ITEM_DIST})")
+                 cfg: LoopClosingConfig = LoopClosingConfig(), group=None):
         self.map = mapstore
         self.cam = cam
         self.kfdb = kfdb
         self.cfg = cfg
+        self.group = group     # the sharded global BA's process group
         self.active: _ActiveCandidate | None = None
         self.n_loops_closed = 0
         self.n_loops_rejected_projgate = 0
@@ -141,6 +146,9 @@ class LoopCloser:
         self._gba_thread = None
         self._gba_abort = threading.Event()
         self.gba_log: list = []
+        # the outcome of the run on this thread: another run may apply
+        # while this one is deciding, so the shared counts cannot say
+        self._run = threading.local()
         # what the last correction did: the keyframe count, and the global
         # BA's padded camera count and tier per round
         self.last_correction: dict = {}
@@ -395,14 +403,13 @@ class LoopCloser:
         """Run one GBA worker and log its camera count, time and
         outcome."""
         t0 = time.perf_counter()
-        runs, aborted = self.n_gba_runs, self.n_gba_aborted
+        self._run.applied = False
         target(m, prob, meta, abort)
         self.gba_log.append(dict(
             kind=("inertial" if target == self._gba_worker_inertial
                   else "visual"), C=int(meta["n_real"]),
             seconds=time.perf_counter() - t0,
-            applied=self.n_gba_runs > runs,
-            aborted=self.n_gba_aborted > aborted))
+            applied=self._run.applied, aborted=not self._run.applied))
 
     def _apply_under_lock(self, apply, abort: threading.Event) -> None:
         """Take the map lock with a timeout, so that an aborter that holds
@@ -418,23 +425,63 @@ class LoopCloser:
                 return
             apply()
             self.n_gba_runs += 1
+            self._run.applied = True
         finally:
             self.map_lock.release()
+
+    def gba_group(self, n_obs: int):
+        """The process group the racing global BA shards n_obs observations
+        over: the loop closer's when ``dist_gba`` holds, it has more than
+        one rank and n_obs splits evenly over them; else None, the
+        one-process solve (the JAX code's ``single``)."""
+        group = comm.active(self.group)
+        if (not self.cfg.dist_gba or group is None
+                or n_obs % comm.world_size(group)):
+            return None
+        return group
 
     def _gba_worker(self, m: MapStore, prob, meta, abort: threading.Event):
         """Chunks of ``ba_solve_fused`` with an abort check between them
         (the reference checks mbStopGBA each iteration; a chunk is the
         port's grain, and LM restarts its damping each chunk as in the JAX
-        package), then the apply under the map lock."""
+        package), then the apply under the map lock. Sharded over
+        ``gba_group``: chunks of the sharded PCG above ``ba._PCG_C_MIN``
+        cameras; below it sharded Schur steps, one between abort checks,
+        then a one-process polish of one iteration, which also gives the
+        inlier verdicts."""
         res = None
         done = 0
         td = meta.get("table_depth", 0)
-        while done < self.cfg.gba_iters and not abort.is_set():
-            res = ba.ba_solve_fused(prob, self.cam, iters=self.cfg.gba_chunk,
-                                    table_depth=td)
-            prob = prob._replace(kf_R=res.kf_R, kf_t=res.kf_t,
-                                 points=res.points)
-            done += self.cfg.gba_chunk
+        group = self.gba_group(int(prob.obs_cam.shape[0]))
+        if group is None:
+            while done < self.cfg.gba_iters and not abort.is_set():
+                res = ba.ba_solve_fused(prob, self.cam,
+                                        iters=self.cfg.gba_chunk,
+                                        table_depth=td)
+                prob = prob._replace(kf_R=res.kf_R, kf_t=res.kf_t,
+                                     points=res.points)
+                done += self.cfg.gba_chunk
+        elif int(prob.kf_R.shape[0]) > ba._PCG_C_MIN:
+            solve = dist_ba.make_dist_gba_pcg(
+                self.cam, group, iters=self.cfg.gba_chunk, lead=True)
+            while done < self.cfg.gba_iters and not abort.is_set():
+                res = solve(prob)
+                prob = prob._replace(kf_R=res.kf_R, kf_t=res.kf_t,
+                                     points=res.points)
+                done += self.cfg.gba_chunk
+        else:
+            step = dist_ba.make_dist_ba_step(self.cam, group, lead=True)
+            while (done < max(self.cfg.gba_iters - 1, 1)
+                   and not abort.is_set()):
+                R, t, pts = step(prob.kf_R, prob.kf_t, prob.points,
+                                 prob.obs_cam, prob.obs_pt, prob.obs_uv,
+                                 prob.obs_w, prob.obs_valid, prob.fixed_cam,
+                                 prob.point_valid)
+                prob = prob._replace(kf_R=R, kf_t=t, points=pts)
+                done += 1
+            if not abort.is_set():
+                res = ba.ba_solve_fused(prob, self.cam, iters=1,
+                                        table_depth=td)
         if res is None or abort.is_set():
             self.n_gba_aborted += 1
             return
@@ -444,15 +491,23 @@ class LoopCloser:
     def _gba_worker_inertial(self, m: MapStore, prob, meta,
                              abort: threading.Event):
         """The same protocol over chunks of the full-chain visual-inertial
-        BA (``vi_ba_solve`` at zero bias priors, as the JAX worker)."""
+        BA (``vi_ba_solve`` at zero bias priors, as the JAX worker), its
+        visual observations sharded over ``gba_group``."""
         R_cb, t_cb = device_mod.upload_packed(
             [np.ascontiguousarray(meta["R_bc"].T), meta["t_cb"]], m.device)
         g = inertial.gravity_vec(m.device)
         res = None
         done = 0
+        group = self.gba_group(int(prob.obs_cam.shape[0]))
+        if group is None:
+            solve = lambda p: vi_ba.vi_ba_solve(p, self.cam, R_cb, t_cb, g,
+                                                iters=self.cfg.gba_chunk)
+        else:
+            dist = dist_ba.make_dist_viba_solve(
+                self.cam, group, iters=self.cfg.gba_chunk, lead=True)
+            solve = lambda p: dist(p, R_cb, t_cb, g)
         while done < self.cfg.gba_iters and not abort.is_set():
-            res = vi_ba.vi_ba_solve(prob, self.cam, R_cb, t_cb, g,
-                                    iters=self.cfg.gba_chunk)
+            res = solve(prob)
             prob = prob._replace(R_wb=res.R_wb, p_w=res.p_w, v_w=res.v_w,
                                  bg=res.bg, ba=res.ba, points=res.points)
             done += self.cfg.gba_chunk

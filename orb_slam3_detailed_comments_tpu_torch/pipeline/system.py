@@ -84,11 +84,15 @@ class System:
                  baseline: float = 0.0, th_depth: float = 35.0,
                  imu_calib=None, camera2=None, T_c1c2=None,
                  async_mapping: bool = False, orb_cfg=None,
-                 max_kf_lag: int = 1, device=None):
+                 max_kf_lag: int = 1, device=None, group=None):
         if sensor not in (MONOCULAR, STEREO, RGBD, IMU_MONOCULAR, IMU_STEREO,
                           IMU_RGBD):
             raise ValueError(f"unknown sensor {sensor}")
         self.device = device_mod.resolve(device)
+        # the process group of the sharded global BA and of batched
+        # extraction (rank 0 runs the System, the other ranks
+        # parallel.dist_ba.serve); None: this process alone
+        self.group = group
         self.cam = cam
         self.sensor = sensor
         self.inertial = sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD)
@@ -193,7 +197,7 @@ class System:
         self.loop_closer = LoopCloser(
             self.map, self.cam, self.kfdb,
             LoopClosingConfig(async_gba=self._async, fix_scale=self.sensor in (
-                STEREO, RGBD, IMU_STEREO, IMU_RGBD)))
+                STEREO, RGBD, IMU_STEREO, IMU_RGBD)), group=self.group)
         # in async mode the global BA after a loop races tracking on its own
         # thread and applies under the map lock (reference: mpThreadGBA)
         self.loop_closer.map_lock = self.map_lock
@@ -306,6 +310,36 @@ class System:
             prev = cur
         if prev is not None:
             yield self._post_track(tk._track_frame(*prev), prev[1])
+
+    def track_monocular_batch(self, imgs, stamps, imu_seq=None,
+                              group=None) -> list:
+        """Offline / bulk ingestion: extract the frames [n, H, W] in blocks
+        of ``batch_extract.INGEST_BLOCK_MULTIPLE`` frames a rank
+        (``parallel.batch_extract.prepare_frames``: a block's frames ride
+        one batched extraction, and with a process group of several ranks
+        each rank takes its share of a block while rank 0, here, leads the
+        others in ``dist_ba.serve``), then run the tracking state machine
+        over the prepared frames in order. Returns [T_cw or None] a frame,
+        as frame-by-frame ``track_monocular`` does; imu_seq: one window a
+        frame, or None. group defaults to the System's.
+
+        (No reference equivalent: the reference is strictly online.)"""
+        from ..parallel import batch_extract
+        tk = self.tracker
+        if tk.cfg.frontend != "fused":
+            raise ValueError("track_monocular_batch extracts on the fused "
+                             "front end only")
+        with timing.span("ORB extraction"):   # the batch's, amortised
+            preps = batch_extract.prepare_frames(
+                self.cam, tk.orb_cfg, imgs, group or self.group,
+                batch_extract.INGEST_BLOCK_MULTIPLE, device=self.device,
+                lead=True)
+        out = []
+        for i, prep in enumerate(preps):
+            imu = None if imu_seq is None else imu_seq[i]
+            pose = tk.track_prepared(prep, float(stamps[i]), imu_meas=imu)
+            out.append(self._post_track(pose, float(stamps[i])))
+        return out
 
     def _post_track(self, pose, ts: float = 0.0):
         while self.tracker.new_keyframes:

@@ -246,6 +246,13 @@ class Tracker:
         the previous frame."""
         prep = kernels.prepare_frame(self.image(img), self.cam, self.orb_cfg,
                                      self.cfg.frontend)
+        return self.track_prepared(prep, ts, imu_meas)
+
+    def track_prepared(self, prep: kernels.PreparedFrame, ts: float,
+                       imu_meas=None) -> Optional[np.ndarray]:
+        """Track a monocular frame extracted ahead (bulk ingestion:
+        ``parallel.batch_extract.prepare_frames`` extracts the frames in
+        blocks, and the state machine takes them in order)."""
         return self._track_frame(prep, ts, None, imu_meas)
 
     def image(self, img) -> torch.Tensor:

@@ -304,14 +304,6 @@ def test_run_outliving_its_abort_does_not_apply():
     assert sorted(r["applied"] for r in lc.gba_log) == [False, True]
 
 
-def test_dist_gba_raises_naming_its_item():
-    m = mapstore.MapStore(SCENE_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="1.7"):
-        loop_closing.LoopCloser(m, CAM, kfdb=None,
-                                cfg=loop_closing.LoopClosingConfig(
-                                    dist_gba=True))
-
-
 def replay_card_map(path: str, iters: int = 10):
     """Replay chip_smoke.py phase 10c's racing inertial global BA on the
     map the card ran it on (``chiprun_out/map_9a.npz``: the map arrays,

@@ -103,7 +103,8 @@ def test_every_kernel_source_is_registered():
     "optim.pose_graph", "optim.schur_pcg", "pipeline.loop_closing",
     "imu.preintegration", "imu.factors", "imu.inertial_init", "optim.jac",
     "optim.vi_ba", "pipeline.inertial", "utils.config",
-    "utils.serialization", "utils.verbose", "utils.counters"])
+    "utils.serialization", "utils.verbose", "utils.counters",
+    "comm", "parallel.batch_extract", "parallel.dist_ba"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"

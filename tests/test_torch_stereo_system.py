@@ -261,8 +261,9 @@ def test_track_stereo_iter_matches_track_stereo(runs, world):
 def test_inertial_sensors_raise(sensor):
     """Since the inertial slice the inertial sensors construct, each with
     its tracker's IMU state and the local inertial BA hook, and since the
-    ninth slice also with the async mapper; what still raises is the
-    sharded global BA of their loop closer, naming its item."""
+    ninth slice also with the async mapper; since the twelfth (item 1.7)
+    their loop closer takes the sharded global BA by default, and without
+    a process group its one-process solve."""
     from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
     slam = system.System(CAM, sensor, enable_loop_closing=False,
                          device="cpu")
@@ -272,9 +273,10 @@ def test_inertial_sensors_raise(sensor):
                        async_mapping=True, device="cpu")
     assert am.inertial and am._worker.is_alive()
     am.shutdown()
-    with pytest.raises(NotImplementedError, match="item 1.7"):
-        loop_closing.LoopCloser(slam.map, CAM, None,
-                                loop_closing.LoopClosingConfig(dist_gba=True))
+    assert loop_closing.LoopClosingConfig().dist_gba is True
+    lc = loop_closing.LoopCloser(slam.map, CAM, None,
+                                 loop_closing.LoopClosingConfig())
+    assert lc.gba_group(1024) is None
 
 
 def test_imu_input_raises_on_stereo_and_rgbd(world):

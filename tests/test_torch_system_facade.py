@@ -118,8 +118,10 @@ def test_lost_map_is_reset_or_kept(frames):
 ])
 def test_unported_configurations_raise(kw, item):
     """The async mapping worker constructs since the ninth slice (with
-    loop closing on, its loop closer races the global BA); what still
-    raises is the sharded global BA (dist_gba), naming its item."""
+    loop closing on, its loop closer races the global BA), and since the
+    twelfth (item 1.7) the sharded global BA too: dist_gba is the default,
+    and without a process group the loop closer takes the one-process
+    solve."""
     from orb_slam3_detailed_comments_tpu_torch.pipeline import loop_closing
     args = dict(enable_loop_closing=False, device="cpu")
     args.update(kw)
@@ -130,10 +132,13 @@ def test_unported_configurations_raise(kw, item):
         if slam.enable_loop_closing:
             slam._build_recognition()
             assert slam.loop_closer.cfg.async_gba
-        with pytest.raises(NotImplementedError, match=item):
-            loop_closing.LoopCloser(slam.map, CAM, None,
-                                    loop_closing.LoopClosingConfig(
-                                        dist_gba=True))
+        assert item == "item 1.7" and loop_closing.LoopClosingConfig().dist_gba
+        lc = loop_closing.LoopCloser(slam.map, CAM, None,
+                                     loop_closing.LoopClosingConfig(
+                                         dist_gba=True))
+        assert lc.gba_group(1024) is None
+        if slam.enable_loop_closing:
+            assert slam.loop_closer.gba_group(1024) is None
     finally:
         slam.shutdown()
 
