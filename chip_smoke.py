@@ -174,16 +174,29 @@ Phases, each of which raises on failure:
      against its world-1 solve at the JAX tests' tolerances, their clocks,
      and the racing global BA with dist_gba, rank 1 serving: one run
      applied, the abort bit-exact.
-  ``--phases 3,9,10,11,12,13`` runs phases 1, 2 and the named ones only (10
-  with 9a first, whose map 10c takes; 12 alone takes its turns on its own
-  monocular map; 13 alone takes the synthetic chain).
+ 14. the repo's tools (tools/): (a) tests/test_placerec.py::
+     test_vocab_domain_shift_gate's case in full through
+     tools.eval_vocab: the three shifted texture domains, 10 worlds x 8
+     frames each from seed 50,000, ray-cast on the card and extracted in
+     blocks of 8, the bundled vocabulary's retrieval gated at top1 >= 0.88
+     and margin >= 3.0; each extraction kernel launched ceil(8B / 16)
+     times a block; the first 2 frames of each domain's features and word
+     ids equal to the CPU's (the angle within 1e-4 rad); each domain's
+     host seconds by stage; (b) tools.train_vocab end to end at L = 3 on
+     12 worlds x 10 frames: the saved file loads back equal, the bundled
+     default_vocab.npz hashes the same before and after, its blob-domain
+     top1 and margin reported; (c) tools.profile_stages on 16 frames: the
+     fps line and the stage table.
+  ``--phases 3,9,10,11,12,13,14`` runs phases 1, 2 and the named ones only
+  (10 with 9a first, whose map 10c takes; 12 alone takes its turns on its
+  own monocular map; 13 alone takes the synthetic chain).
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
 "stereo", phase 8's under "phase8", phase 9's under "phase9", phase 10's
 under "phase10", phase 11's under "phase11", phase 12's under "phase12",
-phase 13's under "phase13"), the
+phase 13's under "phase13", phase 14's under "phase14"), the
 card's
 name
 and power limit (nvidia-smi's csv), and last
@@ -5662,17 +5675,275 @@ def multi_device_phase(dev) -> dict:
     return out
 
 
+# phase 14: the repo's tools on the port (torch:tools/)
+# tests/test_placerec.py::test_vocab_domain_shift_gate's case and gates
+VOCAB_CASE = dict(n_worlds=10, frames_per_world=8, seed0=50_000)
+VOCAB_GATES = dict(top1=0.88, margin=3.0, angle=1e-4)
+VOCAB_CPU_FRAMES = 2
+# 14b: train_vocab at L = 3 on 12 worlds x 10 frames; its blob-domain
+# retrieval on 6 held-out worlds x 8 frames (no gate: no JAX test has
+# this size)
+TRAIN_CASE = dict(levels=3, n_worlds=12)
+TRAIN_EVAL = dict(n_worlds=6, frames_per_world=8)
+PROFILE_FRAMES = 16
+
+
+def block_launches(n_frames, n_levels=8):
+    """Each extraction kernel's launches over n_frames frames extracted in
+    blocks of INGEST_BLOCK_MULTIPLE (the last may be smaller): ceil(8B /
+    16) a block of B; the searches none."""
+    from orb_slam3_detailed_comments_tpu_torch.parallel import batch_extract
+    B = batch_extract.INGEST_BLOCK_MULTIPLE
+    n = sum(-(-n_levels * min(B, n_frames - s) // 16)
+            for s in range(0, n_frames, B))
+    return dict({k: n for k in EXTRACT_KERNELS}, hamming_best2=0,
+                hamming_best2_windowed=0)
+
+
+def features_card_vs_cpu(dev, voc, voc_cpu, imgs, feat, cfg):
+    """The card's features (``feat``, the first frames of a block) and
+    word ids against the CPU's extraction of the same images: every field
+    equal but the angle (the devices' atan2 part by ulps), held within
+    VOCAB_GATES["angle"] rad; where they part, ``frontend_diff``'s
+    account."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    from orb_slam3_detailed_comments_tpu_torch.placerec import vocab
+    cpu = torch.device("cpu")
+    fc = extractor.extract_batch(imgs.to(cpu), cfg)
+    rec = dict(frames=len(imgs), differing=[], max_angle_diff=0.0,
+               words_differing=0)
+    for b in range(len(imgs)):
+        fg = extractor.FrameFeatures(*(x[b].to(cpu) for x in feat))
+        fb = extractor.FrameFeatures(*(x[b] for x in fc))
+        for name in fg._fields:
+            if name != "angle" and not torch.equal(getattr(fg, name),
+                                                   getattr(fb, name)):
+                rec["differing"].append(f"frame {b} {name}")
+        d = fg.angle - fb.angle
+        rec["max_angle_diff"] = max(rec["max_angle_diff"], float(
+            torch.atan2(torch.sin(d), torch.cos(d)).abs().max()))
+        wg = vocab.transform(voc, feat.desc[b], feat.valid[b]).cpu()
+        wc = vocab.transform(voc_cpu, fb.desc, fb.valid)
+        rec["words_differing"] += int((wg != wc).sum())
+        if rec["differing"]:
+            rec.setdefault("diff", []).append(frontend_diff(fg, fb))
+    return rec
+
+
+def vocab_eval_path(dev, case=VOCAB_CASE, gates=VOCAB_GATES,
+                    n_cpu=VOCAB_CPU_FRAMES):
+    """14a: test_vocab_domain_shift_gate's case in full on dev through
+    ``tools.eval_vocab``: for each shifted texture domain, n_worlds x
+    frames_per_world frames from seed0, ray-cast on dev and extracted in
+    blocks of 8 (``frame_blocks``, the path of ``render_eval_set``), the
+    bundled vocabulary's retrieval (``retrieval_metrics``) gated at top1
+    >= 0.88 and margin >= 3.0; each extraction kernel launched ceil(8B /
+    16) times a block (the counts set to 0 just before each domain's run
+    and read just after); the first n_cpu frames' features and word ids
+    against the CPU's. Logs each domain's host seconds: textures (on the
+    thread), the wait for them, render, extraction, BoW and retrieval."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    from orb_slam3_detailed_comments_tpu_torch.placerec import vocab
+    from orb_slam3_detailed_comments_tpu_torch.tools import eval_vocab as ev
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    cam = cameras.pinhole(**ev.CAM_KW)
+    cfg = extractor.OrbConfig(n_features=ev.N_FEATURES)
+    voc = vocab.load(device=dev)
+    voc_cpu = vocab.load(device="cpu")
+    nw, fpw, seed0 = case["n_worlds"], case["frames_per_world"], case["seed0"]
+    want = block_launches(nw * fpw, cfg.n_levels)
+    world_of = np.repeat(np.arange(nw), fpw)
+    idx = np.tile(np.arange(fpw), nw)
+    out = dict(domains={}, launches={k: 0 for k in want}, case=dict(case))
+    for name, fn in sr.TEXTURE_DOMAINS.items():
+        if name == "blob":
+            continue
+        stats, descs, valids, first = {}, [], [], None
+        t0 = time.perf_counter()
+        reset_counts()                      # this domain's run starts here
+        for imgs, f in ev.frame_blocks(
+                cam, cfg, lambda s, fn=fn: ev.eval_world(s, fn, fpw),
+                range(seed0, seed0 + nw), dev, stats):
+            first = first or (imgs[:n_cpu], f)
+            descs += list(f.desc)
+            valids += list(f.valid)
+        t1 = time.perf_counter()
+        top1, margin = ev.retrieval_metrics(voc, descs, valids, world_of,
+                                            idx)
+        stats["bow_and_retrieval"] = time.perf_counter() - t1
+        launches = dict(native.launches)    # ... and ends here
+        stats["wall"] = time.perf_counter() - t0
+        cmp = features_card_vs_cpu(dev, voc, voc_cpu, first[0], first[1],
+                                   cfg)
+        r = out["domains"][name] = dict(top1=top1, margin=margin,
+                                        seconds=stats, launches=launches,
+                                        card_vs_cpu=cmp)
+        for k in want:
+            out["launches"][k] += launches[k]
+        log(f"14a {name}: top1 {top1:.4f} (gate {gates['top1']}), margin "
+            f"{margin:.4f} (gate {gates['margin']}) over {nw * fpw} frames; "
+            f"host seconds " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in stats.items())
+            + f"; launches {launches} (expected {want}); card against CPU "
+            f"on {cmp['frames']} frames: fields differing {cmp['differing']}"
+            f", largest angle difference {cmp['max_angle_diff']:.3e} rad, "
+            f"{cmp['words_differing']} word ids differing"
+            + (f" ({cmp['diff']})" if "diff" in cmp else ""))
+        if top1 < gates["top1"] or margin < gates["margin"]:
+            raise AssertionError(f"14a {name}: top1 {top1:.4f}, margin "
+                                 f"{margin:.4f} below the gates {gates}")
+        if (cmp["differing"] or cmp["words_differing"]
+                or cmp["max_angle_diff"] > gates["angle"]):
+            raise AssertionError(f"14a {name}: card and CPU part: {cmp}")
+        if dev.type == "cuda" and launches != want:
+            raise AssertionError(f"14a {name}: launches {launches}, "
+                                 f"expected {want}")
+    return out
+
+
+def _sha256(path) -> str:
+    import hashlib
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def vocab_train_path(dev, case=TRAIN_CASE, eval_case=TRAIN_EVAL):
+    """14b: ``tools.train_vocab`` end to end (VOCAB_PHASE all) at L =
+    levels on n_worlds x 10 frames on dev, saved under build/phase14/
+    (removed after). Gates: the saved file loads back equal to the trained
+    vocabulary; the bundled default_vocab.npz hashes the same before and
+    after; the extraction kernels launched as blocks of 8 require. Reports
+    its blob-domain top1 and margin on eval_case's held-out worlds (no
+    gate)."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    from orb_slam3_detailed_comments_tpu_torch.placerec import vocab
+    from orb_slam3_detailed_comments_tpu_torch.tools import eval_vocab as ev
+    from orb_slam3_detailed_comments_tpu_torch.tools import train_vocab
+    work = REPO / "build" / "phase14"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out_path = work / f"vocab_L{case['levels']}.npz"
+    bundled = _sha256(vocab.DEFAULT_PATH)
+    stats, text = {}, io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        reset_counts()                      # this path's run starts here
+        with contextlib.redirect_stdout(text):
+            voc = train_vocab.run(case["levels"], case["n_worlds"],
+                                  str(out_path), "all",
+                                  str(work / "desc.npy"), dev, stats)
+        launches = dict(native.launches)    # ... and ends here
+        stats["wall"] = time.perf_counter() - t0
+        back = vocab.load(out_path, dev)
+        equal = ((back.k, back.levels) == (voc.k, voc.levels)
+                 and np.array_equal(back.idf, voc.idf)
+                 and all(torch.equal(a, b) for a, b in zip(back.centroids,
+                                                           voc.centroids)))
+        t1 = time.perf_counter()
+        data = ev.render_eval_set(
+            cameras.pinhole(**ev.CAM_KW),
+            extractor.OrbConfig(n_features=ev.N_FEATURES),
+            eval_case["n_worlds"], eval_case["frames_per_world"], ev.SEED0,
+            None, dev)
+        top1, margin = ev.retrieval_metrics(back, *data)
+        stats["blob_eval"] = time.perf_counter() - t1
+        size = out_path.stat().st_size
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    after = _sha256(vocab.DEFAULT_PATH)
+    want = block_launches(
+        case["n_worlds"] * train_vocab.FRAMES_PER_WORLD)
+    rec = dict(case=dict(case), n_words=voc.n_words, file_bytes=size,
+               round_trip_equal=equal, bundled_unchanged=bundled == after,
+               blob_top1=top1, blob_margin=margin,
+               blob_eval=dict(eval_case), seconds=stats, launches=launches,
+               tool_output=text.getvalue().splitlines())
+    log(f"14b train_vocab L={case['levels']} on {case['n_worlds']} worlds: "
+        f"{voc.n_words} words, {size} bytes, loads back equal {equal}, "
+        f"bundled vocabulary unchanged {bundled == after}; blob-domain "
+        f"top1 {top1:.4f}, margin {margin:.4f} on {eval_case} (no gate); "
+        f"host seconds " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     stats.items())
+        + f"; launches {launches} (expected {want}); the tool said: "
+        + " | ".join(rec["tool_output"]))
+    if not equal or bundled != after:
+        raise AssertionError(f"14b: {rec}")
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"14b launches {launches}, expected {want}")
+    return rec
+
+
+def profile_stages_path(dev, n=PROFILE_FRAMES):
+    """14c: ``tools.profile_stages`` through its main on n frames of dev:
+    it returns 0 and prints the fps line and the stage table (both
+    logged); each extraction kernel launched at least once a profiled
+    frame (the warmup's frames come on top)."""
+    import contextlib
+    import io
+    import re
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.tools import profile_stages
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()                          # this path's run starts here
+    with contextlib.redirect_stdout(text):
+        rc = profile_stages.main([str(n), "--device", dev.type])
+    launches = dict(native.launches)        # ... and ends here
+    lines = text.getvalue().splitlines()
+    fps = [ln for ln in lines
+           if re.fullmatch(r"total [\d.]+s, [\d.]+ fps, kf=\d+ pts=\d+", ln)]
+    head = [i for i, ln in enumerate(lines) if ln.split()[:2] == ["stage",
+                                                                  "mean"]]
+    rows = lines[head[0] + 1:] if head else []
+    rec = dict(frames=n, rc=rc, fps_line=fps, table=rows, launches=launches,
+               seconds=time.perf_counter() - t0)
+    log(f"14c profile_stages {n}: rc {rc}, {fps}, {len(rows)} stage rows, "
+        f"launches {launches}; the tool printed:")
+    for ln in lines:
+        log("  " + ln)
+    if rc != 0 or len(fps) != 1 or not rows:
+        raise AssertionError(f"14c: {rec}")
+    if dev.type == "cuda" and any(launches[k] < n for k in EXTRACT_KERNELS):
+        raise AssertionError(f"14c launches {launches}: fewer than {n}")
+    return rec
+
+
+def tools_phase(dev) -> dict:
+    """Phase 14: 14a, 14b and 14c, each sub-phase's time logged."""
+    log("phase 14 the repo's tools: 14a the vocabulary's domain-shift gate, "
+        "14b train_vocab end to end, 14c profile_stages")
+    out, t = {"seconds": {}}, [time.perf_counter()]
+    for name, key, run_sub in (
+            ("14a", "eval", lambda: vocab_eval_path(dev)),
+            ("14b", "train", lambda: vocab_train_path(dev)),
+            ("14c", "stages", lambda: profile_stages_path(dev))):
+        out[key] = run_sub()
+        t.append(time.perf_counter())
+        out["seconds"][name] = t[-1] - t[-2]
+        log(f"{name} took {t[-1] - t[-2]:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
-    """argv: optionally ``--phases 3,9,10,11,12,13`` to run only those of
-    phases 3, 9, 10, 11, 12 and 13 (phases 1 and 2 always run; the last
-    lines then carry what ran)."""
+    """argv: optionally ``--phases 3,9,10,11,12,13,14`` to run only those
+    of phases 3 and 9-14 (phases 1 and 2 always run; the last lines then
+    carry what ran)."""
     import torch
     argv = sys.argv[1:] if argv is None else argv
     phases = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = {p.strip() for p in argv[1].split(",")}
     elif argv:
-        print("usage: chip_smoke.py [--phases 3,9,10,11,12,13]",
+        print("usage: chip_smoke.py [--phases 3,9,10,11,12,13,14]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5697,7 +5968,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, phases=None) -> int:
-    """Phases 1-13 on the card dev (or 1, 2 and those named in phases);
+    """Phases 1-14 on the card dev (or 1, 2 and those named in phases);
     raises on the first failure."""
     import torch
     t_start = time.perf_counter()
@@ -5769,6 +6040,8 @@ def run(dev, phases=None) -> int:
     phase_done("phase 12")
     ph13 = multi_device_phase(dev)
     phase_done("phase 13")
+    ph14 = tools_phase(dev)
+    phase_done("phase 14")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
@@ -5779,7 +6052,9 @@ def run(dev, phases=None) -> int:
              ("rgbd_merge", ph11["rgbd_merge"]), ("vi_loop", ph11["vi_loop"]),
              ("host_surfaces", ph12["surfaces"]),
              ("batch_extract", ph13["extract"]),
-             ("batch_ingest", ph13["ingest"]))
+             ("batch_ingest", ph13["ingest"]), ("vocab_eval", ph14["eval"]),
+             ("vocab_train", ph14["train"]),
+             ("profile_stages", ph14["stages"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -5829,6 +6104,7 @@ def run(dev, phases=None) -> int:
                     "phase11": phase_summary(ph11),
                     "phase12": phase_summary(ph12),
                     "phase13": phase_summary(ph13),
+                    "phase14": phase_summary(ph14),
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
@@ -5905,7 +6181,7 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
 
 
 def run_some(dev, phases, rates, card, t_start) -> int:
-    """Only the phases named (3, 9, 10, 11, 12 and 13; 10 runs 9a first for its map and
+    """Only the phases named (3, 9-14; 10 runs 9a first for its map and
     a synchronous run of its own in place of phase 6's): the records of
     the paths that ran, and the last lines as in a whole run."""
     import torch
@@ -5926,6 +6202,8 @@ def run_some(dev, phases, rates, card, t_start) -> int:
         out["phase12"] = phase_summary(host_phase(dev))
     if "13" in phases:
         out["phase13"] = phase_summary(multi_device_phase(dev))
+    if "14" in phases:
+        out["phase14"] = phase_summary(tools_phase(dev))
     log(f"the script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({k: (v if k != "phase9" else {
         n: {kk: vv for kk, vv in r.items() if kk != "how"}

@@ -67,6 +67,7 @@ from ..mapping.mapstore import MapStore, NO_POINT
 from ..models import cameras, twoview
 from ..ops import extractor, matching
 from ..optim import pose_opt
+from ..utils import timing
 from . import kernels
 from .local_mapping import run_local_ba
 
@@ -244,8 +245,9 @@ class Tracker:
         Tracking::GrabImageMonocular + Track(), Tracking.cc:1668,1971).
         imu_meas: optional (acc [M, 3], gyro [M, 3], t [M]) samples since
         the previous frame."""
-        prep = kernels.prepare_frame(self.image(img), self.cam, self.orb_cfg,
-                                     self.cfg.frontend)
+        with timing.span("ORB extraction"):
+            prep = kernels.prepare_frame(self.image(img), self.cam,
+                                         self.orb_cfg, self.cfg.frontend)
         return self.track_prepared(prep, ts, imu_meas)
 
     def track_prepared(self, prep: kernels.PreparedFrame, ts: float,
@@ -382,29 +384,31 @@ class Tracker:
         # keyframes (Tracking.cc:2203-2240 -> 3067)
         imu_rescue = imu_ready and self.state == RECENTLY_LOST
         use_imu = imu_ready and self.state in (OK, RECENTLY_LOST)
-        if (use_imu or (self.velocity is not None and self.state == OK
-                        and self.last is not None)):
-            # the fused step covers both the motion-model and the local-map
-            # stage; "fail1" falls through to the reference's fallback
-            # chain (Tracking.cc:2120)
-            seed = self._seed_from_kfs or imu_rescue
-            self._seed_from_kfs = False
-            r = self._track_steady_fused(prep, ts, fid, use_imu=use_imu,
-                                         seed_from_kfs=seed)
-            if r != "fail1":
-                fused = True
-                ok = r == "ok"
         vo_mode = False
-        if not ok and not fused:
-            ok = self._track_reference_keyframe(prep, ts, fid)
-            if not ok and self.localization_only:
-                # the frozen map gave too few matches: track frame to frame
-                # on the last frame's depth-backed features
-                ok = vo_mode = self._track_visual_odometry(prep)
-            if not ok and self.state in (RECENTLY_LOST, LOST) \
-                    and self.relocalizer is not None:
-                ok = self._relocalization(prep, fid)
-            if ok and not vo_mode:
+        with timing.span("pose prediction"):
+            if (use_imu or (self.velocity is not None and self.state == OK
+                            and self.last is not None)):
+                # the fused step covers both the motion-model and the
+                # local-map stage; "fail1" falls through to the
+                # reference's fallback chain (Tracking.cc:2120)
+                seed = self._seed_from_kfs or imu_rescue
+                self._seed_from_kfs = False
+                r = self._track_steady_fused(prep, ts, fid, use_imu=use_imu,
+                                             seed_from_kfs=seed)
+                if r != "fail1":
+                    fused = True
+                    ok = r == "ok"
+            if not ok and not fused:
+                ok = self._track_reference_keyframe(prep, ts, fid)
+                if not ok and self.localization_only:
+                    # the frozen map gave too few matches: track frame to
+                    # frame on the last frame's depth-backed features
+                    ok = vo_mode = self._track_visual_odometry(prep)
+                if not ok and self.state in (RECENTLY_LOST, LOST) \
+                        and self.relocalizer is not None:
+                    ok = self._relocalization(prep, fid)
+        if ok and not fused and not vo_mode:
+            with timing.span("track local map"):
                 ok = self._track_local_map()
         if ok:
             was_lost = self.state in (RECENTLY_LOST, LOST)

@@ -1,7 +1,8 @@
 """Synthetic textured-plane world, ray-cast renderer and map-seeding fixture.
 
 Counterpart of a cv2-free subset of ``utils/synth_render.py`` of the JAX
-package: the same blob textures, worlds (``default_world``, the loop
+package: the same blob textures and texture domains (``TEXTURE_DOMAINS``:
+the vocabulary's domain-shift probes, the same draws bit for bit), worlds (``default_world``, the loop
 world ``box_world``) and trajectories (``orbit_trajectory``,
 ``loop_trajectory``, ``inertial_trajectory``,
 ``inertial_loop_trajectory``), so a seed gives the same world in both
@@ -33,6 +34,68 @@ def _texture(rng, size=1200, n_blobs=4000):
         h, w = rng.integers(4, 22), rng.integers(4, 22)
         img[y:y + h, x:x + w] = rng.uniform(10, 245)
     return np.clip(img, 0, 255)
+
+
+def texture_natural(rng, size=1200, alpha=1.2, contrast=55.0):
+    """1/f^alpha-spectrum texture: the power-law amplitude statistics of
+    natural imagery (vs _texture's piecewise-constant blobs). Corner
+    detectors fire on a much broader, denser response distribution here —
+    the domain-shift probe for the vocabulary (the bundled vocabulary is
+    trained on blob statistics only)."""
+    f = np.fft.fftfreq(size)
+    fr = np.sqrt(f[:, None] ** 2 + f[None, :] ** 2)
+    fr[0, 0] = fr[0, 1]
+    amp = 1.0 / fr ** alpha
+    phase = rng.uniform(0, 2 * np.pi, (size, size))
+    spec = amp * np.exp(1j * phase)
+    img = np.real(np.fft.ifft2(spec))
+    img = (img - img.mean()) / (img.std() + 1e-9)
+    return np.clip(120.0 + contrast * img, 0, 255).astype(np.float32)
+
+
+def texture_lit(rng, size=1200, n_blobs=2000):
+    """Blob texture under strong low-frequency lighting: a smooth
+    illumination field (gradient + a few gaussian 'lamps', x0.4-1.6) over
+    the base — breaks any brightness-constancy assumption in descriptors."""
+    base = _texture(rng, size, n_blobs)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                         indexing="ij")
+    gdir = rng.uniform(0, 2 * np.pi)
+    field = 0.35 * (np.cos(gdir) * xx + np.sin(gdir) * yy)
+    for _ in range(int(rng.integers(2, 5))):
+        cy, cx = rng.uniform(0, 1, 2)
+        sig = rng.uniform(0.08, 0.3)
+        field += rng.uniform(0.2, 0.6) * np.exp(
+            -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
+    field = 0.4 + 1.2 * (field - field.min()) / (np.ptp(field) + 1e-9)
+    return np.clip(base * field, 0, 255).astype(np.float32)
+
+
+def texture_specular(rng, size=1200, n_blobs=1800, n_spots=14):
+    """Blob texture with saturated specular spots: bright elliptical
+    highlights that clip to white (a glossy plane under point lights) —
+    saturation plateaus kill gradient information locally."""
+    base = _texture(rng, size, n_blobs)
+    yy, xx = np.meshgrid(np.arange(size, dtype=np.float32),
+                         np.arange(size, dtype=np.float32), indexing="ij")
+    for _ in range(n_spots):
+        cy, cx = rng.uniform(0, size, 2)
+        sy, sx = rng.uniform(8, 60, 2)
+        th = rng.uniform(0, np.pi)
+        dy, dx = yy - cy, xx - cx
+        u = np.cos(th) * dx + np.sin(th) * dy
+        v = -np.sin(th) * dx + np.cos(th) * dy
+        base += 400.0 * np.exp(-(u ** 2 / (2 * sx ** 2)
+                                 + v ** 2 / (2 * sy ** 2)))
+    return np.clip(base, 0, 255).astype(np.float32)
+
+
+TEXTURE_DOMAINS = {
+    "blob": lambda rng, size: _texture(rng, size),
+    "natural_1f": lambda rng, size: texture_natural(rng, size),
+    "lit": lambda rng, size: texture_lit(rng, size),
+    "specular": lambda rng, size: texture_specular(rng, size),
+}
 
 
 @dataclass

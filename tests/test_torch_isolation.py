@@ -104,7 +104,9 @@ def test_every_kernel_source_is_registered():
     "imu.preintegration", "imu.factors", "imu.inertial_init", "optim.jac",
     "optim.vi_ba", "pipeline.inertial", "utils.config",
     "utils.serialization", "utils.verbose", "utils.counters",
-    "comm", "parallel.batch_extract", "parallel.dist_ba"])
+    "comm", "parallel.batch_extract", "parallel.dist_ba", "tools",
+    "tools.eval_vocab", "tools.train_vocab", "tools.profile_stages",
+    "tools.make_dataset_configs"])
 def test_new_modules_import_alone_without_jax(module):
     code = (f"import sys, importlib\n"
             f"importlib.import_module('{PKG}.{module}')\n"
