@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py     # the whole check, a few minutes
+    python3 chip_smoke.py                 # the whole check, ~16 minutes
+    python3 chip_smoke.py --phases 15b    # one long opt-in case, 5-15 min
 
 Phases, each of which raises on failure:
   1. card:   a CUDA card must be present; prints its name and power limit;
@@ -187,17 +188,41 @@ Phases, each of which raises on failure:
      default_vocab.npz hashes the same before and after, its blob-domain
      top1 and margin reported; (c) tools.profile_stages on 16 frames: the
      fps line and the stage table.
-  ``--phases 3,9,10,11,12,13,14`` runs phases 1, 2 and the named ones only
-  (10 with 9a first, whose map 10c takes; 12 alone takes its turns on its
-  own monocular map; 13 alone takes the synthetic chain).
+ 15. the JAX package's long acceptance runs, each case built by
+     long_case as its test builds it (seed, world, trajectory, IMU
+     windows, degradations, camera, System settings; pinhole frames from
+     synth_render.render_frame, the JAX helpers' homography renderer bit
+     for bit; KB8 frames ray-cast on the card at pixel centres), driven
+     through the System at the test's full depth and held to its gates
+     with exact launch counts; each correction's branch (Sim3 / SE3, 4DoF,
+     yaw-only after VIBA2, refused by the gravity gate), each global BA's
+     tier and C, the racing global BA's runs and aborts, the correction's
+     host clock by part, the steady frames' median and p90, the seconds.
+     (a) in the whole run: the TUM-VI flagship, a non-rectified KB8 pair
+     plus IMU over 45 frames (test_fisheye_stereo_inertial_end_to_end),
+     with the IMU initialisation's frame, the gyro bias error, the metric
+     ATE and scale, and card against CPU on one frame (the same keypoints
+     from prepare_frame_stereo_fisheye, track_step_inertial_lf's match_pt
+     on >= 99 % and pose within 1e-3); opt-in, one call each: (b) the
+     520-frame stress loop (test_long_adversarial_loop), (c) the same
+     async (test_long_adversarial_loop_async), (d) the 520-frame
+     IMU_MONOCULAR gauntlet (test_long_adversarial_inertial_loop), (e) the
+     400-frame stereo gauntlet (test_stereo_gauntlet_fixed_scale_loop),
+     (f) the 320-frame KB8 stereo-inertial loop through VIBA2
+     (test_fisheye_stereo_inertial_loop_closure).
+  ``--phases 3,9,10,11,12,13,14,15a,...,15f`` runs phases 1, 2 and the
+  named ones only (10 with 9a first, whose map 10c takes; 12 alone takes
+  its turns on its own monocular map; 13 alone takes the synthetic chain);
+  ``--phases 15b`` ... ``--phases 15f`` run the long opt-in cases, one a
+  call.
 
 Output (copied to chiprun_out/chip_smoke_log.txt): per-phase lines, then
 on lines of their own the kernels' JSON
 record (with the System phase's record under "system", phase 7's under
 "stereo", phase 8's under "phase8", phase 9's under "phase9", phase 10's
 under "phase10", phase 11's under "phase11", phase 12's under "phase12",
-phase 13's under "phase13", phase 14's under "phase14"), the
-card's
+phase 13's under "phase13", phase 14's under "phase14", phase 15's
+under "phase15"), the card's
 name
 and power limit (nvidia-smi's csv), and last
 {"ok": true, "device": {...}}. Exits non-zero with no result line when
@@ -4591,6 +4616,135 @@ def degrade(img, i, n):
     return img
 
 
+def stress_trajectory(n, radius=3.0, closes=1.06):
+    """tests/test_pipeline_stress.py's loop with a nonuniform angle
+    schedule: a 2.5x fast-rotation burst in the third quadrant."""
+    u = np.linspace(0, 1, n)
+    rate = np.where((u > 0.55) & (u < 0.65), 2.5, 1.0)
+    a_acc = np.cumsum(rate)
+    a_acc = a_acc / a_acc[-1] * 2 * np.pi * closes
+    Rs, ts = [], []
+    for a in a_acc:
+        cw = np.array([radius * np.sin(a), 0.0, radius * np.cos(a)])
+        z = np.array([np.sin(a), 0.0, np.cos(a)])
+        x = np.array([np.cos(a), 0.0, -np.sin(a)])
+        y = np.cross(z, x)
+        R_cw = np.stack([x, y, z], axis=1).T
+        Rs.append(R_cw.astype(np.float32))
+        ts.append((-R_cw @ cw).astype(np.float32))
+    return np.stack(Rs), np.stack(ts)
+
+
+# phase 15: the JAX package's long acceptance runs, each case built as its
+# test builds it (seed, world, trajectory, IMU windows, degradations,
+# camera, System settings), at its full depth
+LONG_CAM_KW = LOOP_CAM_KW
+LONG_BG = np.array([-0.002, 0.003, 0.001], np.float32)
+LONG_TESTS = dict(
+    flagship="tests/test_pipeline_fisheye.py:51 "
+             "test_fisheye_stereo_inertial_end_to_end",
+    stress="tests/test_pipeline_stress.py:78 test_long_adversarial_loop",
+    stress_async="tests/test_pipeline_stress.py:147 "
+                 "test_long_adversarial_loop_async",
+    stress_inertial="tests/test_pipeline_stress.py:217 "
+                    "test_long_adversarial_inertial_loop",
+    stereo_gauntlet="tests/test_pipeline_metric_loops.py:31 "
+                    "test_stereo_gauntlet_fixed_scale_loop",
+    kb8_loop="tests/test_pipeline_fisheye.py:148 "
+             "test_fisheye_stereo_inertial_loop_closure")
+LONG_PHASES = dict(zip(("15a", "15b", "15c", "15d", "15e", "15f"),
+                       LONG_TESTS))
+
+
+def long_case(name):
+    """The case of the JAX test LONG_TESTS[name], as the test builds it.
+    A dict: n frames, the port's camera, the System's sensor and keyword
+    arguments, the frame times ts and the true camera centres, IMU windows
+    (or None), extractions and the stereo matcher's one-image gathers a
+    frame, and frame(i, dev): frame i's image (a stereo pair: a tuple),
+    rendered on dev, degraded as the test degrades it, as host numpy.
+    Pinhole frames come from synth_render.render_frame (the test's
+    homography renderer, equal to its OpenCV output bit for bit), KB8
+    frames from synth_render.render_image at pixel centres (the test's
+    render_frame_raycast)."""
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    from orb_slam3_detailed_comments_tpu_torch.utils import synth_render as sr
+    kb8 = name in ("flagship", "kb8_loop")
+    cam = (cameras.fisheye_kb8(**KB8_KW) if kb8
+           else cameras.pinhole(**LONG_CAM_KW))
+    case = dict(name=name, test=LONG_TESTS[name], cam=cam, windows=None,
+                extractions=1, sad=0)
+    T_c1c2 = np.eye(4, dtype=np.float32)
+    T_c1c2[0, 3] = BASELINE
+    if name in ("stress", "stress_async", "stereo_gauntlet"):
+        walls = stress_world(np.random.default_rng(21))
+        n = 400 if name == "stereo_gauntlet" else 520
+        R, t = stress_trajectory(n)
+        case.update(ts=np.arange(n) * 0.05, R=R, t=t,
+                    centers=sr.camera_centers(R, t))
+    elif name == "stress_inertial":
+        walls = stress_world(np.random.default_rng(33))
+        n = 520
+        traj = sr.inertial_loop_trajectory(n, imu_per_frame=10,
+                                           yaw_burst=(0.62, 0.72, 2.0))
+    elif name == "kb8_loop":
+        walls = stress_world(np.random.default_rng(29), half=4.0)
+        n = 320
+        traj = sr.inertial_loop_trajectory(n, imu_per_frame=12,
+                                           true_bg=LONG_BG)
+    else:
+        walls = sr.default_world(np.random.default_rng(23))
+        n = 45
+        traj = sr.inertial_trajectory(n, true_bg=LONG_BG)
+    if "R" not in case:
+        R, t = traj["R_cw"], traj["t_cw"]
+        case.update(ts=traj["ts"], R=R, t=t, centers=traj["centers"],
+                    windows=traj["windows"])
+    case["n"] = n
+    if name in ("stress", "stress_async"):
+        case.update(sensor=system.MONOCULAR, system_kw=dict(
+            enable_loop_closing=True, async_mapping=name == "stress_async"))
+
+        def frame(i, dev):
+            return degrade(sr.render_frame(cam, walls, R[i], t[i], dev), i, n)
+    elif name == "stress_inertial":
+        case.update(sensor=system.IMU_MONOCULAR,
+                    system_kw=dict(enable_loop_closing=True))
+        blank = np.full((cam.height, cam.width), 85.0, np.float32)
+
+        def frame(i, dev):
+            if 0.30 < i / n < 0.36:          # full visual blackout (~1.5 s)
+                return blank
+            return degrade(sr.render_frame(cam, walls, R[i], t[i], dev), i, n)
+    elif name == "stereo_gauntlet":
+        case.update(sensor=system.STEREO, extractions=2,
+                    sad=SAD_GATHERS["stereo"], system_kw=dict(
+                        baseline=BASELINE, enable_loop_closing=True))
+
+        def frame(i, dev):
+            # the JAX renderer's right camera (float64 t, not rounded)
+            c_r = -R[i].T @ t[i] + R[i].T @ np.array([BASELINE, 0.0, 0.0])
+            return tuple(degrade(sr.render_frame(cam, walls, R[i], ti, dev),
+                                 i, n) for ti in (t[i], -R[i] @ c_r))
+    else:
+        case.update(sensor=system.IMU_STEREO, extractions=2,
+                    sad=SAD_GATHERS["fisheye"], system_kw=dict(
+                        camera2=cam, T_c1c2=T_c1c2,
+                        enable_loop_closing=name == "kb8_loop"))
+
+        def frame(i, dev):
+            pair = tuple(sr.render_image(cam, walls, R[i], ti, dev,
+                                         centre=0.5).cpu().numpy()
+                         for ti in (t[i], sr.stereo_right_t(R[i], t[i],
+                                                            BASELINE)))
+            if name == "flagship":
+                return pair
+            return tuple(degrade(img, i, n) for img in pair)
+    case["frame"] = frame
+    return case
+
+
 def rgbd_merge_path(dev, cam_kw=METRIC_CAM_KW, n=50, n2=30, world_seed=7,
                     gates=RGBD_MERGE_GATES, map_cfg=None, track_cfg=None,
                     orb_cfg=None):
@@ -4755,7 +4909,7 @@ def vi_loop_path(dev, cam_kw=METRIC_CAM_KW, n=VI_LOOP_FRAMES,
     inertial map, and the first one applied there, replayed on the CPU."""
     from orb_slam3_detailed_comments_tpu_torch.models import cameras
     from orb_slam3_detailed_comments_tpu_torch.pipeline import (
-        inertial, loop_closing, system)
+        loop_closing, system)
     from orb_slam3_detailed_comments_tpu_torch.utils import (
         evaluate_ate, synth_render as sr)
     cam = cameras.pinhole(**cam_kw)
@@ -4781,21 +4935,12 @@ def vi_loop_path(dev, cam_kw=METRIC_CAM_KW, n=VI_LOOP_FRAMES,
     sync = torch_sync(dev)
     frame, parts, corrections, snaps = [0], {}, [], {}
 
-    def part(obj, name, label):
-        return time_part(parts, obj, name, label, sync)
-
     graph = {}
 
     def timing_patches(lc, m):
         """The correction's parts timed, the poses after the graph kept:
         patched for one correction only; returns the undo."""
-        undo = [part(loop_closing, "_chain_covis_edges", "graph"),
-                part(loop_closing, "_solve_essential_graph", "graph"),
-                part(loop_closing, "_apply_pose_graph", "graph"),
-                part(inertial, "run_full_inertial_ba", "full inertial BA"),
-                part(loop_closing, "run_local_ba", "global BA"),
-                part(lc, "_fuse_loop_points", "fuse"),
-                part(m, "update_point_stats", "point stats")]
+        undo = correction_parts(parts, lc, m, sync)
         apply_timed = loop_closing._apply_pose_graph
 
         def apply_kept(m_, *a, **k):
@@ -4806,8 +4951,7 @@ def vi_loop_path(dev, cam_kw=METRIC_CAM_KW, n=VI_LOOP_FRAMES,
 
         def restore():
             loop_closing._apply_pose_graph = apply_timed
-            for u in reversed(undo):
-                u()
+            undo()
         return restore
 
     build = slam._build_recognition
@@ -5933,18 +6077,487 @@ def tools_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+# 15a's card-against-CPU frame: the first track_step_inertial_lf from this
+# frame on, with its frame's prepare_frame_stereo_fisheye
+FLAGSHIP_REPLAY_FROM = 30
+FLAGSHIP_REPLAY = dict(match=0.99, tol=1e-3)
+
+
+def metric_ate(slam, case):
+    """tests/test_pipeline_metric_loops.py's _metric_ate: (rigid ATE, its
+    pairs, the Horn scale)."""
+    from orb_slam3_detailed_comments_tpu_torch.utils import evaluate_ate
+    rows = slam.trajectory_tum()
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    rmse, npair, _ = evaluate_ate.ate_rmse(case["ts"], case["centers"],
+                                           est_ts, est, with_scale=False)
+    _, _, scale = evaluate_ate.ate_rmse(case["ts"], case["centers"], est_ts,
+                                        est, with_scale=True)
+    return rmse, npair, scale
+
+
+def correction_parts(parts, lc, m, sync=lambda: None):
+    """Time a loop correction's parts into parts (host ms by part): the
+    essential graph, the full inertial BA, the visual global BA, the loop
+    fuse, the point stats. Returns the undo."""
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import (
+        inertial, loop_closing)
+    undo = [time_part(parts, obj, name, label, sync)
+            for obj, name, label in (
+                (loop_closing, "_chain_covis_edges", "graph"),
+                (loop_closing, "_solve_essential_graph", "graph"),
+                (loop_closing, "_apply_pose_graph", "graph"),
+                (inertial, "run_full_inertial_ba", "full inertial BA"),
+                (loop_closing, "run_local_ba", "global BA"),
+                (lc, "_fuse_loop_points", "fuse"),
+                (m, "update_point_stats", "point stats"))]
+
+    def restore():
+        for u in reversed(undo):
+            u()
+    return restore
+
+
+def watch_corrections(slam, frame, corrections, sync):
+    """Log each loop correction of slam's loop closer (once it is built):
+    the frame tracked when it ran, its keyframes' frames, its branch (Sim3
+    or SE3 on a visual map, 4DoF on an inertial one, yaw-only after VIBA2,
+    refused by the gravity gate), its global BAs' tiers and C, its host
+    clock by part (in the async mode the worker's, unsynchronised)."""
+    build = slam._build_recognition
+
+    def build_hooked(*a, **k):
+        build(*a, **k)
+        lc = slam.loop_closer
+        correct = lc._correct_loop
+
+        def logged(k_, c, S):
+            m = lc.map
+            inertial_map = bool(m.imu_initialized)
+            rejected0, gba0 = lc.n_loops_rejected_gravity, lc.n_gba_runs
+            parts = {}
+            restore = correction_parts(parts, lc, m, sync)
+            sync()
+            t0 = time.perf_counter()
+            try:
+                out = correct(k_, c, S)
+                sync()
+            finally:
+                restore()
+            ms = (time.perf_counter() - t0) * 1e3
+            branch = ("refused by the gravity gate"
+                      if lc.n_loops_rejected_gravity > rejected0
+                      else "yaw-only (after VIBA2)"
+                      if inertial_map and m.imu_ba2 else "4DoF"
+                      if inertial_map else "SE3" if lc.cfg.fix_scale
+                      else "Sim3")
+            rec = dict(k=int(k_), c=int(c), at_frame=frame[0],
+                       frame=int(m.kf_frame_id[k_]),
+                       match_frame=int(m.kf_frame_id[c]), branch=branch,
+                       closed=bool(out), n_kf=int(m.n_kf), ms=ms,
+                       parts_ms={key: round(v, 1)
+                                 for key, v in parts.items()})
+            rec["parts_ms"]["gate and set-up"] = round(
+                ms - sum(parts.values()), 1)
+            if out and lc.n_gba_runs > gba0:
+                rec["gba"] = list(lc.last_correction.get("gba", []))
+            elif out and lc.cfg.async_gba:
+                rec["gba"] = "launched on its thread"
+            corrections.append(rec)
+            return out
+        lc._correct_loop = logged
+
+    slam._build_recognition = build_hooked
+    return lambda: slam.__dict__.pop("_build_recognition", None)
+
+
+def long_path(dev, name, progress=40):
+    """Drive the port's System over the long case long_case(name) on dev,
+    every frame rendered on dev outside the frame's clock. Returns (slam,
+    record): frames tracked, the keyframe count ahead of each frame, the
+    maps, loops closed, each correction (watch_corrections), the racing
+    global BA's runs, aborts and log, the IMU stages with their frames and
+    host clocks, the stereo gauntlet's loops and metric ATE after frame
+    0.8 n, each frame's host clock and the steady frames' median and p90
+    (tracked by the fused step, no reference-keyframe search, no keyframe
+    made, no correction or IMU stage), the kernels' launches against what
+    the frames and searches require, the seconds; 15a also the first
+    track_step_inertial_lf from FLAGSHIP_REPLAY_FROM on and its frame's
+    prepare_frame_stereo_fisheye inputs."""
+    from orb_slam3_detailed_comments_tpu_torch import native
+    from orb_slam3_detailed_comments_tpu_torch.optim import ba
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels, system
+    t_start = time.perf_counter()
+    case = long_case(name)
+    n, ts, win = case["n"], case["ts"], case["windows"]
+    slam = system.System(case["cam"], case["sensor"], device=dev,
+                         **case["system_kw"])
+    tk, lm = slam.tracker, slam.local_mapper
+    sync = torch_sync(dev)
+    frame, corrections, n_fuse, made_kf, calls = [0], [], [0], [], {}
+    process, post = lm.process_keyframe, slam._post_track
+    real_stage = slam._imu_stage
+
+    def counted(k):
+        process(k)
+        n_fuse[0] += lm.last_event.get("fuse_searches", 0)
+
+    def post_track(pose, t_=0.0):
+        made_kf.append(bool(tk.new_keyframes))
+        return post(pose, t_)
+
+    def timed_stage(*a, **kw):
+        n0 = len(slam.imu_events)
+        sync()
+        t1 = time.perf_counter()
+        took = real_stage(*a, **kw)
+        sync()
+        if len(slam.imu_events) > n0:
+            slam.imu_events[-1].update(
+                host_ms=(time.perf_counter() - t1) * 1e3, frame=frame[0])
+        return took
+
+    def keep(key):
+        def kept(a, kw, out):
+            if (name == "flagship" and frame[0] >= FLAGSHIP_REPLAY_FROM
+                    and not any(len(c) == 2 for c in calls.values())):
+                calls.setdefault(frame[0], {}).setdefault(key, (a, kw))
+        return kept
+
+    lm.process_keyframe, slam._post_track = counted, post_track
+    slam._imu_stage = timed_stage
+    undo = [watch_corrections(slam, frame, corrections,
+                              (lambda: None) if slam._async else sync),
+            _capture(kernels, "prepare_frame_stereo_fisheye",
+                     keep("prepare")),
+            _capture(kernels, "track_step_inertial_lf", keep("lf"))]
+    stereo = case["extractions"] == 2
+    poses, times, kf_before, steady, probe = [], [], [], [], {}
+    imgs = None
+    reset_counts()                          # this path's run starts here
+    try:
+        for i in range(n):
+            frame[0] = i
+            imgs = case["frame"](i, dev)
+            kf_before.append(slam.n_keyframes)
+            steps0, ref0 = tk.n_steps, tk.n_ref_kf_searches
+            ev0, corr0 = len(slam.imu_events), len(corrections)
+            sync()
+            t0 = time.perf_counter()
+            if stereo:
+                pose = slam.track_stereo(*imgs, float(ts[i]),
+                                         imu=None if win is None else win[i])
+            elif win is not None:
+                pose = slam.track_monocular(imgs, float(ts[i]), imu=win[i])
+            else:
+                pose = slam.track_monocular(imgs, float(ts[i]))
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            poses.append(pose)
+            if (pose is not None and tk.n_steps > steps0
+                    and tk.n_ref_kf_searches == ref0 and not made_kf[-1]
+                    and len(slam.imu_events) == ev0
+                    and len(corrections) == corr0):
+                steady.append(i)
+            if name == "stereo_gauntlet" and i == int(0.80 * n):
+                probe = dict(n_before=slam.loop_closer.n_loops_closed,
+                             ate_before=metric_ate(slam, case))
+            if progress and (i % progress == 0 or i == n - 1):
+                lc = slam.loop_closer
+                log(f"  {name} frame {i}: {sum(p is not None for p in poses)}"
+                    f" tracked, {slam.n_keyframes} KF, "
+                    f"{len(slam.atlas.maps)} map(s), loops "
+                    f"{lc.n_loops_closed if lc is not None else 0}, "
+                    f"{times[-1]:.1f} ms, {time.perf_counter() - t_start:.1f}"
+                    f" s")
+        if slam._async:
+            slam.shutdown()                 # drains the worker queue
+        launches = dict(native.launches)    # ... and ends here
+    finally:
+        for u in undo:
+            u()
+        lm.process_keyframe = process
+        slam.__dict__.pop("_post_track", None)
+        slam.__dict__.pop("_imu_stage", None)
+    expect = expected_launches(tk, n, n_fuse[0], case["extractions"])
+    expect["gather_patches"] += case["sad"] * n
+    lc = slam.loop_closer
+    rec = dict(case=name, test=case["test"], n_frames=n,
+               tracked=sum(p is not None for p in poses),
+               keyframes=slam.n_keyframes, maps=len(slam.atlas.maps),
+               loops_closed=lc.n_loops_closed if lc is not None else 0,
+               rejected_gravity=(lc.n_loops_rejected_gravity
+                                 if lc is not None else 0),
+               corrections=corrections,
+               gba_runs=lc.n_gba_runs if lc is not None else 0,
+               gba_aborted=lc.n_gba_aborted if lc is not None else 0,
+               gba_log=[dict(g, tier="inertial" if g["kind"] == "inertial"
+                             else ba.tier_of(g["C"]))
+                        for g in (lc.gba_log if lc is not None else [])],
+               imu_events=list(slam.imu_events), kf_before=kf_before,
+               backpressure_waits=slam.n_backpressure_waits,
+               launches=launches, expected=expect, **probe,
+               frame_ms=_stats(times),
+               steady=_stats([times[i] for i in steady]),
+               seconds=time.perf_counter() - t_start)
+    rec["revisit_loops"] = sum(c["closed"] and c["match_frame"] < n // 2
+                               <= c["frame"] for c in corrections)
+    rec["branches"] = {}
+    for c in corrections:
+        rec["branches"][c["branch"]] = rec["branches"].get(c["branch"], 0) + 1
+    rec["replay_calls"] = calls
+    return slam, rec
+
+
+def long_gates(name, slam, rec):
+    """The JAX test's gates (LONG_TESTS[name]) on a long_path run: the
+    names of those missed, with their values."""
+    from orb_slam3_detailed_comments_tpu_torch.imu import factors
+    from orb_slam3_detailed_comments_tpu_torch.pipeline.inertial import (
+        GRAVITY_MAG)
+    from orb_slam3_detailed_comments_tpu_torch.utils import evaluate_ate
+    case = long_case(name)
+    ts, centers = case["ts"], case["centers"]
+    n, m, lc = rec["n_frames"], slam.map, slam.loop_closer
+    fails = []
+
+    def gate(what, ok, value=None):
+        if not ok:
+            fails.append(f"{what}: {value}")
+
+    gate("frames tracked", rec["tracked"] > 0.8 * n, rec["tracked"])
+    rows = slam.trajectory_tum()
+    est_ts = np.array([r[0] for r in rows])
+    est = np.array([r[1:4] for r in rows])
+    kids = m.kf_ids()
+    fid = m.kf_frame_id[kids]
+    kids, fid = kids[fid >= 0], fid[fid >= 0]
+    kf_c = np.einsum("nij,nj->ni", np.transpose(m.kf_R[kids], (0, 2, 1)),
+                     -m.kf_t[kids])
+    if name != "flagship":
+        gate("one map", rec["maps"] == 1, rec["maps"])
+        gate("loops closed", lc is not None and lc.n_loops_closed >= 1,
+             rec["loops_closed"])
+    if name in ("flagship", "kb8_loop"):
+        gate("IMU initialised", m.imu_initialized)
+        chain = m.temporal_chain()
+        bg_err = float(np.abs(m.kf_bg[chain[-1]] - LONG_BG).max())
+        rec["bg_err"] = bg_err
+        gate("gyro bias", bg_err < 8e-3, bg_err)
+        rmse, npair, _ = evaluate_ate.ate_rmse(ts, centers, est_ts, est,
+                                               with_scale=False)
+        _, _, scale = evaluate_ate.ate_rmse(ts, centers, est_ts, est,
+                                            with_scale=True)
+        rec.update(ate_m=rmse, ate_poses=npair, scale=scale)
+        gate("ATE poses", npair > 0.7 * n, npair)
+        gate("metric ATE", rmse < (0.05 if name == "flagship" else 0.25),
+             rmse)
+        gate("scale", abs(scale - 1.0) < (0.04 if name == "flagship"
+                                          else 0.06), scale)
+        if name == "kb8_loop":
+            gate("VIBA1 and VIBA2", m.imu_ba1 and m.imu_ba2)
+            gate("fix_scale", lc.cfg.fix_scale is True)
+            gate("map consistency", slam.check_map_consistency() == [])
+        return fails
+    if name == "stereo_gauntlet":
+        gate("fix_scale", lc.cfg.fix_scale is True)
+        gate("closed in the revisit", lc.n_loops_closed > rec["n_before"]
+             or rec["n_before"] >= 1, rec["n_before"])
+        gate("pre-loop metric ATE", rec["ate_before"][0] < 0.15,
+             rec["ate_before"])
+        rmse, npair, scale = metric_ate(slam, case)
+        rec.update(ate_m=rmse, ate_poses=npair, scale=scale)
+        gate("ATE poses", npair > 0.8 * n, npair)
+        gate("post-loop metric ATE", rmse < 0.06, rmse)
+        gate("scale", abs(scale - 1.0) < 0.01, scale)
+        gate("keyframes", len(kids) >= 40, len(kids))
+        C = centers[fid]
+        mu_e, mu_g = kf_c.mean(0), C.mean(0)
+        U, _, Vt = np.linalg.svd((kf_c - mu_e).T @ (C - mu_g))
+        D = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
+        aligned = (kf_c - mu_e) @ (Vt.T @ D @ U.T).T + mu_g
+        rmse_kf = float(np.sqrt(((aligned - C) ** 2).sum(1).mean()))
+        rec["kf_ate_m"] = rmse_kf
+        gate("KF-only metric ATE", rmse_kf < 0.04, rmse_kf)
+        gate("map consistency", slam.check_map_consistency() == [])
+        return fails
+    # the three 520-frame gauntlets
+    rmse, npair, scale = evaluate_ate.ate_rmse(ts, centers, est_ts, est)
+    rec.update(ate_m=rmse, ate_poses=npair, scale=scale)
+    gate("ATE poses", npair > 0.8 * n, npair)
+    gate("keyframes", len(kids) >= 60, len(kids))
+    _, _, _, aligned = evaluate_ate.align_horn(kf_c, centers[fid])
+    rmse_kf = float(np.sqrt(((aligned - centers[fid]) ** 2).sum(1).mean()))
+    rec["kf_ate_m"] = rmse_kf
+    if name == "stress":
+        gate("ATE", rmse < 0.08, rmse)
+        gate("KF-only ATE", rmse_kf < 0.02, rmse_kf)
+        gate("map consistency", slam.check_map_consistency() == [])
+    elif name == "stress_async":
+        gate("racing global BA", lc.n_gba_runs + lc.n_gba_aborted >= 1)
+        gate("KF-only ATE", rmse_kf < 0.04, rmse_kf)
+        gate("map consistency", slam.check_map_consistency() == [])
+        gate("ATE", rmse < 0.15, rmse)
+    else:
+        gate("IMU initialised", m.imu_initialized)
+        kb = rec["kf_before"]
+        first = lambda u: next(i for i in range(n) if i / n > u)
+        blackout = (kb[first(0.30)], kb[first(0.36)])
+        rec["kf_blackout"] = blackout
+        gate("keyframes through the blackout", blackout[1] > blackout[0],
+             blackout)
+        gate("scale", abs(scale - 1.0) < 0.02, scale)
+        gate("ATE", rmse < 0.10, rmse)
+        gate("KF-only ATE", rmse_kf < 0.03, rmse_kf)
+        res = chain_preintegration_residuals(m, factors, GRAVITY_MAG)
+        rec["chain_residuals"] = res
+        gate("chain edges", res["edges"] > 0.8 * (res["chain"] - 1), res)
+        gate("median rot residual", res["er"] < 0.005, res["er"])
+        gate("median vel residual", res["ev"] < 0.02, res["ev"])
+        gate("median pos residual", res["ep"] < 0.01, res["ep"])
+    return fails
+
+
+def chain_preintegration_residuals(m, factors, gravity_mag):
+    """test_long_adversarial_inertial_loop's post-GBA check: every
+    preintegration edge of the temporal chain re-evaluated at the optimised
+    states (camera == body); the edge count and the median rotation,
+    velocity and position residual norms."""
+    import torch
+    chain = m.temporal_chain()
+    g = torch.tensor([0.0, 0.0, -gravity_mag], dtype=torch.float32)
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    ers, evs, eps = [], [], []
+    for a, b in zip(chain[:-1], chain[1:]):
+        if m.kf_prev[b] != a or m.kf_pre_dT[b] <= 0:
+            continue
+        pre = m.get_kf_preintegration(np.asarray([b]))
+        pre1 = type(pre)(*[x[0].cpu() for x in pre])
+        r = factors.inertial_residual(
+            T(m.kf_R[a].T), T(-m.kf_R[a].T @ m.kf_t[a]), T(m.kf_vel[a]),
+            T(m.kf_R[b].T), T(-m.kf_R[b].T @ m.kf_t[b]), T(m.kf_vel[b]),
+            T(m.kf_bg[a]), T(m.kf_ba[a]), pre1, g).numpy()
+        ers.append(np.linalg.norm(r[0:3]))
+        evs.append(np.linalg.norm(r[3:6]))
+        eps.append(np.linalg.norm(r[6:9]))
+    return dict(chain=len(chain), edges=len(ers),
+                er=float(np.median(ers)) if ers else None,
+                ev=float(np.median(evs)) if evs else None,
+                ep=float(np.median(eps)) if eps else None)
+
+
+def flagship_replay(calls, dev):
+    """15a's card against CPU: the first frame from FLAGSHIP_REPLAY_FROM on
+    whose prepare_frame_stereo_fisheye and track_step_inertial_lf calls
+    were kept, each run again on the card and on the CPU from the same
+    inputs: where the left and right features part (frontend_diff), the
+    depth-valid sets' agreement, and phase 9's step check (match_pt
+    agreement, pose and velocity differences)."""
+    import torch
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import kernels
+    both = [f for f in sorted(calls) if len(calls[f]) == 2]
+    if not both:
+        raise AssertionError(f"15a: no prepare_frame_stereo_fisheye + "
+                             f"track_step_inertial_lf frame from "
+                             f"{FLAGSHIP_REPLAY_FROM} on")
+    f = both[0]
+    a, kw = calls[f]["prepare"]
+    cpu = torch.device("cpu")
+    card = kernels.prepare_frame_stereo_fisheye(*a, **kw)
+    host = kernels.prepare_frame_stereo_fisheye(*_tensors_to(a, cpu),
+                                                **_tensors_to(kw, cpu))
+    orb_cfg = a[6]
+    right = [extractor.extract(img, orb_cfg) for img in (a[1], a[1].cpu())]
+    zg, zc = card[1].cpu().numpy() > 0, host[1].numpy() > 0
+    out = dict(frame=f, left=frontend_diff(card[0].feat, host[0].feat),
+               right=frontend_diff(*right),
+               depth_valid_agree=float((zg == zc).mean()),
+               step=inertial_step_replay(calls[f]["lf"], dev))
+    st = out["step"]
+    out["ok"] = (out["left"]["keypoints"] == 0
+                 and out["right"]["keypoints"] == 0
+                 and st["match_equal"] >= FLAGSHIP_REPLAY["match"]
+                 and max(st["R"], st["t"], st["v"]) < FLAGSHIP_REPLAY["tol"])
+    return out
+
+
+def long_summary(rec):
+    """A long case's record for the log and the JSON line: the per-frame
+    lists and launch counts apart."""
+    return {k: v for k, v in rec.items()
+            if k not in ("kf_before", "replay_calls", "launches")}
+
+
+def long_phase(dev, keys) -> dict:
+    """Phase 15: each long case named in keys (15a-15f) through long_path,
+    held to its JAX test's gates with exact launch counts; 15a also card
+    against CPU on one frame (flagship_replay). Each case's summary is
+    logged before a missed gate raises."""
+    out = {}
+    for key in keys:
+        name = LONG_PHASES[key]
+        log(f"phase {key} {name}: {LONG_TESTS[name]}, at its full depth")
+        slam, rec = long_path(dev, name)
+        fails = long_gates(name, slam, rec)
+        if dev.type == "cuda":
+            fails += [f"{k}: {rec['launches'][k]} launches, expected {want}"
+                      for k, want in rec["expected"].items()
+                      if rec["launches"][k] != want
+                      or (want == 0 and k != "hamming_best2")]
+        if name == "flagship":
+            rec["replay"] = flagship_replay(rec["replay_calls"], dev)
+            if not rec["replay"]["ok"]:
+                fails.append(f"card against CPU: {rec['replay']}")
+        log(f"{key} {name}: {rec['tracked']}/{rec['n_frames']} frames "
+            f"tracked, {rec['keyframes']} KF, {rec['maps']} map(s); "
+            f"{rec['loops_closed']} loops closed, {rec['rejected_gravity']} "
+            f"refused by the gravity gate, branches {rec['branches']}, "
+            f"{rec['revisit_loops']} across the revisit; global BA "
+            f"{rec['gba_runs']} run / {rec['gba_aborted']} aborted; ATE "
+            f"{rec.get('ate_m')} m over {rec.get('ate_poses')} (scale "
+            f"{rec.get('scale')}), KF-only {rec.get('kf_ate_m')}, bg error "
+            f"{rec.get('bg_err')}; steady frames {rec['steady']}, all "
+            f"{rec['frame_ms']}; {rec['seconds']:.1f} s")
+        for c in rec["corrections"]:
+            log(f"  {key} correction KF {c['k']} (frame {c['frame']}) <- "
+                f"{c['c']} (frame {c['match_frame']}) at frame "
+                f"{c['at_frame']}, {c['n_kf']} KF: {c['branch']}, closed "
+                f"{c['closed']}, global BA {c.get('gba')}, {c['ms']:.1f} ms "
+                f"by part {c['parts_ms']}")
+        log(f"  {key} racing global BAs {rec['gba_log']}; IMU stages "
+            f"{rec['imu_events']}; backpressure waits "
+            f"{rec['backpressure_waits']}; launches {rec['launches']} "
+            f"(expected {rec['expected']})")
+        if "replay" in rec:
+            log(f"  {key} card against CPU on frame {rec['replay']['frame']}"
+                f": {rec['replay']}")
+        out[key] = long_summary(rec)
+        out[key]["launches"] = rec["launches"]
+        if fails:
+            raise AssertionError(f"{key} {name} missed its gates: {fails}")
+    return out
+
+
+PHASE_NAMES = ("3", "9", "10", "11", "12", "13", "14") + tuple(LONG_PHASES)
+USAGE = ("usage: chip_smoke.py [--phases 3,9,10,11,12,13,14,15a,15b,15c,15d,"
+         "15e,15f]")
+
+
 def main(argv=None) -> int:
-    """argv: optionally ``--phases 3,9,10,11,12,13,14`` to run only those
-    of phases 3 and 9-14 (phases 1 and 2 always run; the last lines then
-    carry what ran)."""
+    """argv: optionally ``--phases 3,9,10,11,12,13,14,15a,...`` to run only
+    those of phases 3, 9-14 and 15a-15f (phases 1 and 2 always run; the
+    last lines then carry what ran). 15b-15f, the long opt-in cases, run
+    only so, each alone in a call of its own."""
     import torch
     argv = sys.argv[1:] if argv is None else argv
     phases = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = {p.strip() for p in argv[1].split(",")}
-    elif argv:
-        print("usage: chip_smoke.py [--phases 3,9,10,11,12,13,14]",
-              file=sys.stderr)
+    if argv and (phases is None or not phases <= set(PHASE_NAMES)):
+        print(USAGE, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5968,8 +6581,8 @@ def main(argv=None) -> int:
 
 
 def run(dev, phases=None) -> int:
-    """Phases 1-14 on the card dev (or 1, 2 and those named in phases);
-    raises on the first failure."""
+    """Phases 1-14 and 15a on the card dev (or 1, 2 and those named in
+    phases); raises on the first failure."""
     import torch
     t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6042,6 +6655,8 @@ def run(dev, phases=None) -> int:
     phase_done("phase 13")
     ph14 = tools_phase(dev)
     phase_done("phase 14")
+    ph15 = long_phase(dev, ["15a"])
+    phase_done("phase 15a")
     paths = (("steady", res), ("bootstrap", boot), ("system", sys_rec),
              ("stereo", st["stereo"]), ("rgbd", st["rgbd"]),
              ("fisheye", st["fisheye"]), ("loop", loop),
@@ -6054,7 +6669,7 @@ def run(dev, phases=None) -> int:
              ("batch_extract", ph13["extract"]),
              ("batch_ingest", ph13["ingest"]), ("vocab_eval", ph14["eval"]),
              ("vocab_train", ph14["train"]),
-             ("profile_stages", ph14["stages"]))
+             ("profile_stages", ph14["stages"]), ("flagship", ph15["15a"]))
     for r in rec:
         r["launches"] = sum(run["launches"][r["name"]] for _, run in paths)
         r["launches_by_path"] = {path: run["launches"][r["name"]]
@@ -6105,6 +6720,7 @@ def run(dev, phases=None) -> int:
                     "phase12": phase_summary(ph12),
                     "phase13": phase_summary(ph13),
                     "phase14": phase_summary(ph14),
+                    "phase15": phase_summary(ph15),
                     "launches_by_path": {path: run["launches"]
                                          for path, run in paths},
                     "bound_rates": rates,
@@ -6181,9 +6797,10 @@ def inertial_rgbd(dev, cam_kw=IMU_CAM_KW, n=12):
 
 
 def run_some(dev, phases, rates, card, t_start) -> int:
-    """Only the phases named (3, 9-14; 10 runs 9a first for its map and
-    a synchronous run of its own in place of phase 6's): the records of
-    the paths that ran, and the last lines as in a whole run."""
+    """Only the phases named (3, 9-14, 15a-15f; 10 runs 9a first for its
+    map and a synchronous run of its own in place of phase 6's): the
+    records of the paths that ran, and the last lines as in a whole
+    run."""
     import torch
     out = {}
     if "3" in phases:
@@ -6204,6 +6821,9 @@ def run_some(dev, phases, rates, card, t_start) -> int:
         out["phase13"] = phase_summary(multi_device_phase(dev))
     if "14" in phases:
         out["phase14"] = phase_summary(tools_phase(dev))
+    longs = [k for k in LONG_PHASES if k in phases]
+    if longs:
+        out["phase15"] = phase_summary(long_phase(dev, longs))
     log(f"the script took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({k: (v if k != "phase9" else {
         n: {kk: vv for kk, vv in r.items() if kk != "how"}

@@ -68,12 +68,14 @@ def _taps_on(n_out: int, n_in: int, device: torch.device):
 
 def _two_tap(a: torch.Tensor, b: torch.Tensor, w_lo: torch.Tensor,
              w_hi: torch.Tensor) -> torch.Tensor:
-    """w_lo * a + w_hi * b in the rounding order of the CPU BLAS's
-    interpolation products (XLA-CPU's too): the first product rounded to
+    """w_lo * a + w_hi * b in one fixed rounding order, that of torch's CPU
+    BLAS for the interpolation products: the first product rounded to
     float32, the second added to it with one rounding, as a fused
     multiply-add does. The fused step runs as separate float64 operations
     (the float32 product is exact in float64), so the card and the CPU
-    round it alike."""
+    round it alike. XLA-CPU's dots (the JAX package's matrix form) pick
+    this order or another by their shape; ``resize_bilinear`` says
+    which."""
     first = torch.mul(a, w_lo).double()
     second = torch.mul(b.double(), w_hi.double())
     return torch.add(first, second).to(torch.float32)
@@ -82,10 +84,19 @@ def _two_tap(a: torch.Tensor, b: torch.Tensor, w_lo: torch.Tensor,
 def resize_bilinear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     """Bilinear resize with a fixed order of operations: rows first, then
     columns, each output value the two taps of ``_resize_matrix``'s row
-    (``_two_tap``). It equals the matrix form ``(rh @ img) @ rw.T`` of the
-    CPU, and of the JAX package there, to the bit but where the float64
-    sum rounds onto a float32 tie; on the card the matrix form's library
-    rounds otherwise (``tests/test_torch_extractor.py``)."""
+    (``_two_tap``). It equals torch's matrix form ``(rh @ img) @ rw.T`` on
+    the CPU to the bit but where the float64 sum rounds onto a float32
+    tie; on the card the matrix form's library rounds otherwise. The JAX
+    package's matrix form on XLA-CPU rounds each pass one of three ways,
+    chosen by the dot's shape: at 752x480, 480x752 -> 400x627 takes two
+    separately rounded products vertically (11.8 % of the outputs part
+    from the fused form here) and the fused form horizontally but on
+    0.002 %; 400x627 -> 333x522 the fused form vertically and two
+    roundings horizontally; at 376x240, 240x376 -> 200x313 the fused form
+    in both passes. So JAX's resized levels part from these by 1-3
+    float32 ulps (<= 4.6e-5) at some pixels of every level past the base
+    (``tests/test_torch_extractor.py::
+    test_resize_parts_from_xla_cpu_only_by_the_two_tap_rounding``)."""
     ch, cw = img.shape[-2:]
     lo, hi, wl, wh = _taps_on(nh, ch, img.device)
     rows = _two_tap(img[..., lo, :], img[..., hi, :], wl[:, None],

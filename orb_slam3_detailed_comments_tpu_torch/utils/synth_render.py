@@ -9,7 +9,10 @@ world ``box_world``) and trajectories (``orbit_trajectory``,
 packages, and a ray-cast renderer for any camera model, modelled on its ``render_frame_raycast``, that also returns the
 exact 3D hit of every ray. ``render_stereo_pair`` and ``render_depth``
 (rectified stereo pairs, depth maps) are built on it: the JAX versions
-warp with ``cv2``. ``seed_map`` builds the map that tracking runs against from ground
+warp with ``cv2``. ``render_frame`` is the JAX package's homography
+renderer itself, ``cv2.warpPerspective``'s arithmetic (OpenCV 5) written
+out in torch, for the cases that must be the JAX tests' own frames.
+``seed_map`` builds the map that tracking runs against from ground
 truth; it is a test and smoke fixture, not a SLAM feature.
 """
 from __future__ import annotations
@@ -391,19 +394,21 @@ def _texture_on(tex: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def render_image(cam: cameras.CameraParams, planes, R_cw, t_cw,
-                 device, with_depth: bool = False):
+                 device, with_depth: bool = False, centre: float = 0.0):
     """``render_frame_raycast``'s image as a float32 tensor [H, W] on
     ``device``: the same rays and bilinear texture reads as ``raycast``,
     in torch (float64 rays, float32 texture weights; any other model than
     an undistorted pinhole casts ``cameras.unproject_bearing``'s float32
     bearings, as ``raycast`` does), so that long sequences render on the
     card. ``with_depth``: also ``render_depth``'s map [H, W] float32, 0
-    where the ray hits nothing."""
+    where the ray hits nothing. ``centre``: pixel (c, r) casts the ray
+    through (c + centre, r + centre); 0.5, the pixel's centre, is the JAX
+    package's ``render_frame_raycast``."""
     dev = torch.device(device)
     f64 = torch.float64
     H, W = cam.height, cam.width
-    vv, uu = torch.meshgrid(torch.arange(H, dtype=f64, device=dev),
-                            torch.arange(W, dtype=f64, device=dev),
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=f64, device=dev) + centre,
+                            torch.arange(W, dtype=f64, device=dev) + centre,
                             indexing="ij")
     if cam.kind == cameras.PINHOLE and not any(cam.dist):
         rays = torch.stack([(uu.reshape(-1) - cam.cx) / cam.fx,
@@ -458,6 +463,81 @@ def render_image(cam: cameras.CameraParams, planes, R_cw, t_cw,
             torch.isfinite(z), z,
             torch.zeros_like(z)).to(torch.float32).reshape(H, W)
     return out.reshape(H, W)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c with one rounding (the float32 product is exact
+    in float64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def warp_perspective(tex: np.ndarray, H: np.ndarray, width: int,
+                     height: int, device="cpu") -> torch.Tensor:
+    """``cv2.warpPerspective(tex, H, (width, height), INTER_LINEAR,
+    BORDER_CONSTANT, -1.0)`` for a float32 texture, by OpenCV 5's rule, as
+    a float32 tensor [height, width] on ``device``: the inverse of H (in
+    float64) rounded to float32; each output pixel (x, y) maps to
+    w = fma(M20, x, y M21 + M22), sx = fma(M00, x, y M01 + M02) / w (sy
+    alike), all in float32; the taps around (floor(sx), floor(sy)) are
+    interpolated along x with a = sx - floor(sx), then along y, each step
+    a fused multiply-add (as ``utils.config.rectify``); a tap outside the
+    texture reads -1."""
+    dev = torch.device(device)
+    f32 = torch.float32
+    M = torch.from_numpy(np.linalg.inv(np.asarray(H, np.float64))
+                         .astype(np.float32)).to(dev)
+    y, x = torch.meshgrid(torch.arange(height, dtype=f32, device=dev),
+                          torch.arange(width, dtype=f32, device=dev),
+                          indexing="ij")
+    row = lambda r: y * M[r, 1] + M[r, 2]
+    full = lambda v: torch.full_like(x, float(v))
+    w = _fma32(full(M[2, 0]), x, row(2))
+    sx = _fma32(full(M[0, 0]), x, row(0)) / w
+    sy = _fma32(full(M[1, 0]), x, row(1)) / w
+    th, tw = tex.shape
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    ax, ay = sx - x0f, sy - y0f
+    # the taps read a copy with a border of 2 texels of -1: a corner
+    # clipped to [-2, tw] x [-2, th] reads the same taps inside and -1
+    # outside
+    pad = torch.full((th + 4, tw + 4), -1.0, dtype=f32, device=dev)
+    pad[2:th + 2, 2:tw + 2] = _texture_on(tex, dev)
+    flat = pad.reshape(-1)
+    clip = lambda v, hi: torch.nan_to_num(v, nan=-2.0).clamp(-2, hi).long() + 2
+    i00 = clip(y0f, th) * (tw + 4) + clip(x0f, tw)
+    f0 = _fma32(ax, flat[i00 + 1] - flat[i00], flat[i00])
+    f1 = _fma32(ax, flat[i00 + tw + 5] - flat[i00 + tw + 4],
+                flat[i00 + tw + 4])
+    return _fma32(ay, f1 - f0, f0)
+
+
+def render_frame(cam: cameras.CameraParams, planes, R_cw, t_cw,
+                 device="cpu") -> np.ndarray:
+    """The JAX package's homography renderer (``render_frame``) without
+    OpenCV: each plane in front of the camera (its texture's centre at
+    z >= 0.2) warped by ``warp_perspective`` through K [R e1 | R e2 |
+    R o + t], later planes on top where their warp is >= 0, 90 where no
+    plane lands. Computed on ``device``, returned as numpy [H, W]
+    float32: the JAX renderer's image (OpenCV 5) bit for bit
+    (``tests/test_torch_long_sequences.py``). An ideal pinhole only."""
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    dev = torch.device(device)
+    out = torch.zeros((cam.height, cam.width), dtype=torch.float32,
+                      device=dev)
+    filled = torch.zeros((cam.height, cam.width), dtype=torch.bool,
+                         device=dev)
+    for pl in planes:
+        c = R_cw @ (pl.origin + pl.e1 * pl.texture.shape[1] / 2
+                    + pl.e2 * pl.texture.shape[0] / 2) + t_cw
+        if c[2] < 0.2:
+            continue
+        H = K @ np.stack([R_cw @ pl.e1, R_cw @ pl.e2,
+                          R_cw @ pl.origin + t_cw], axis=1)
+        warped = warp_perspective(pl.texture, H, cam.width, cam.height, dev)
+        mask = warped >= 0
+        out = torch.where(mask, warped, out)
+        filled |= mask
+    return torch.where(filled, out, torch.full_like(out, 90.0)).cpu().numpy()
 
 
 def stereo_right_t(R_cw, t_cw, baseline: float) -> np.ndarray:

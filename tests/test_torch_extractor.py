@@ -137,11 +137,15 @@ def _exact(x):
                          ids=["480->400", "480->333", "240->200", "2:1"])
 def test_fixed_order_resize_equals_the_matrix_form_where_exact(shape):
     """``resize_bilinear`` (two taps per output, in a fixed order of
-    separately rounded operations) against the matrix-product form on the
-    CPU: bit-equal wherever the matrix form's two-tap sums are exact (every
-    row sum and column sum exactly representable in float32; all of the
-    dyadic 2:1 downsize), and measured bit-equal on every pixel of these
-    four resizes (the CPU BLAS adds its two taps in the same order)."""
+    separately rounded operations) against torch's matrix-product form on
+    the CPU: bit-equal wherever the matrix form's two-tap sums are exact
+    (every row sum and column sum exactly representable in float32; all of
+    the dyadic 2:1 downsize), and measured bit-equal on every pixel of
+    these four resizes (torch's CPU BLAS adds the low tap's rounded
+    product and the high tap's product with one rounding, as
+    ``_two_tap`` does). The JAX package's matrix form on XLA-CPU rounds
+    some passes otherwise, by the dot's shape:
+    ``test_resize_parts_from_xla_cpu_only_by_the_two_tap_rounding``."""
     rng = np.random.default_rng(31)
     src = (480, 752) if shape[0] > 300 else (240, 376)
     img = np.round(rng.uniform(0, 255, src)).astype(np.float32)
@@ -159,3 +163,70 @@ def test_fixed_order_resize_equals_the_matrix_form_where_exact(shape):
     assert ok.sum() >= 20
     np.testing.assert_array_equal(new[ok], old[ok])
     np.testing.assert_array_equal(new, old)
+
+
+def _two_tap_forms(a, b, w_lo, w_hi):
+    """The three roundings of w_lo a + w_hi b in float32: a fused
+    multiply-add with the low tap's rounded product first, one with the
+    high tap's first, and two rounded products added."""
+    p_lo, p_hi = (a * w_lo).astype(np.float32), (b * w_hi).astype(np.float32)
+    f64 = lambda x: x.astype(np.float64)
+    return ((f64(p_lo) + f64(b) * f64(w_hi)).astype(np.float32),
+            (f64(p_hi) + f64(a) * f64(w_lo)).astype(np.float32),
+            (p_lo + p_hi).astype(np.float32))
+
+
+@pytest.mark.parametrize("base", [(480, 752), (240, 376)],
+                         ids=["752x480", "376x240"])
+def test_resize_parts_from_xla_cpu_only_by_the_two_tap_rounding(base):
+    """The seven resizes of a pyramid, each pass on the same input in both
+    packages (the vertical pass on the port's previous level, the
+    horizontal pass on the port's vertical result; JAX's
+    ``resize_bilinear_mm`` with an identity for the other pass): at every
+    output the JAX package's value is one of the three roundings of the
+    same two taps (``_two_tap_forms``), and the port's is the first, a
+    fused multiply-add with the low tap first, on every device.
+
+    XLA-CPU picks the rounding by the dot's shape. Measured on a random
+    integer 752x480 image: 480x752 -> 400x627 vertically two roundings
+    (the fused form parts from it on 11.8 % of the outputs), horizontally
+    the fused low-first form but on 0.002 %; 400x627 -> 333x522 and
+    278x435 -> 231x363 the fused form vertically and two roundings
+    horizontally; 333x522 -> 278x435 and 231x363 -> 193x302 two roundings
+    vertically; at 376x240, 240x376 -> 200x313 the fused form in both
+    passes (0 apart). So every level past the first parts from JAX's by
+    1-3 float32 ulps at some pixels, which can move a FAST knife-edge: an
+    emitter choice of one CPU build, not the resize's semantics; the port
+    keeps one rounding on the CPU and the card instead."""
+    rng = np.random.default_rng(5)
+    H, W = base
+    cur = torch.from_numpy(np.round(rng.uniform(0, 255, base))
+                           .astype(np.float32))
+    parted = []
+    for lv in range(1, 8):
+        nh, nw = int(round(H / 1.2 ** lv)), int(round(W / 1.2 ** lv))
+        ch, cw = cur.shape
+        x = cur.numpy()
+        lo, hi, wl, wh = (t.numpy() for t in pyramid._taps_on(
+            nh, ch, torch.device("cpu")))
+        fused, _, _ = forms = _two_tap_forms(x[lo], x[hi], wl[:, None],
+                                             wh[:, None])
+        jax_v = np.asarray(jpyr.resize_bilinear_mm(jnp.asarray(x), nh, cw))
+        assert np.logical_or.reduce([jax_v == f for f in forms]).all()
+        rows = pyramid._two_tap(cur[lo], cur[hi],
+                                torch.from_numpy(wl)[:, None],
+                                torch.from_numpy(wh)[:, None])
+        np.testing.assert_array_equal(rows.numpy(), fused)
+        lo, hi, wl, wh = (t.numpy() for t in pyramid._taps_on(
+            nw, cw, torch.device("cpu")))
+        r = rows.numpy()
+        fused, _, _ = forms = _two_tap_forms(r[:, lo], r[:, hi],
+                                             wl[None, :], wh[None, :])
+        jax_h = np.asarray(jpyr.resize_bilinear_mm(jnp.asarray(r), nh, nw))
+        assert np.logical_or.reduce([jax_h == f for f in forms]).all()
+        cur = pyramid.resize_bilinear(cur, nh, nw)
+        np.testing.assert_array_equal(cur.numpy(), fused)
+        parted.append(float((jax_v != rows.numpy()).mean()))
+    if base == (480, 752):
+        # the first resize's vertical pass: two roundings in JAX's dot
+        assert parted[0] > 0.05
