@@ -13,11 +13,18 @@ the device's default stream, as tracking does. The card runs the kernels
 of every thread in the order they were queued, so what one thread queued
 before another reads it (the map lock, or the start of a thread, orders
 the two) is written by then: no stream needs a handoff.
+
+The transfers between host and card (``to_device``, ``upload_packed``,
+``fetch_packed``) copy from and to pageable host memory: each waits for
+the stream, a host sync, and runs inside a span "host sync"
+(``utils/timing``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .utils import timing
 
 
 def resolve(device=None) -> torch.device:
@@ -45,6 +52,19 @@ def _as_i32(t: torch.Tensor) -> torch.Tensor:
 _WORD_TYPES = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(bool))
 
 
+def to_device(x, device) -> torch.Tensor:
+    """x (a numpy array or a tensor) on device. A copy of any elements
+    between host and card waits for the stream, a host sync; without a
+    card, each copy of the helpers stands for the card's."""
+    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(
+        x, np.ndarray) else x
+    dev = torch.device(device)
+    if t.numel() == 0 or t.device.type == dev.type == "cuda":
+        return t.to(dev)
+    with timing.span("host sync"):
+        return t.to(dev)
+
+
 def upload_packed(arrays, device) -> list:
     """Copy float32 / int32 / bool numpy arrays to the device in one
     transfer; returns tensors of the arrays' shapes and types."""
@@ -55,7 +75,7 @@ def upload_packed(arrays, device) -> list:
                             f"arrays, not {a.dtype}")
     words = [(a.astype(np.int32) if a.dtype == bool else a.view(np.int32))
              .reshape(-1) for a in arrays]
-    flat = torch.from_numpy(np.concatenate(words)).to(device)
+    flat = to_device(np.concatenate(words), device)
     out = []
     for a, c in zip(arrays, torch.split(flat, [w.size for w in words])):
         if a.dtype == np.float32:
@@ -70,7 +90,7 @@ def fetch_packed(parts) -> list:
     """Bring float32 / int32 / bool tensors to the host in one transfer;
     returns numpy arrays of the tensors' shapes and types."""
     sizes = [p.numel() for p in parts]
-    flat = torch.cat([_as_i32(p) for p in parts]).cpu().numpy()
+    flat = to_device(torch.cat([_as_i32(p) for p in parts]), "cpu").numpy()
     out = []
     for p, c in zip(parts, np.split(flat, np.cumsum(sizes)[:-1])):
         if p.dtype == torch.float32:

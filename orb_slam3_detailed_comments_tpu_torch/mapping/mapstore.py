@@ -235,7 +235,7 @@ class MapStore:
     # ---- device-resident view ----------------------------------------------
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return device_mod.to_device(a, self.device)
 
     def device_points(self) -> dict:
         """Device copies of the point arrays (xyz, desc, normal, min_dist,

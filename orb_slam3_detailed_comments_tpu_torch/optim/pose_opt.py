@@ -37,6 +37,7 @@ import torch
 from ..imu import factors
 from ..lie import SE3, se3, so3
 from ..models import cameras
+from ..utils import timing
 from . import reproj
 
 
@@ -165,9 +166,13 @@ def _solve64(H, g, n: int):
 
 
 def _cholesky_upper(A: torch.Tensor, jitter: float) -> torch.Tensor:
-    """L^T of A + jitter I = L L^T: whitens a residual r as L^T r."""
+    """L^T of A + jitter I = L L^T: whitens a residual r as L^T r. The
+    factorisation's error check reads its status on the host: a host
+    sync."""
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    return torch.linalg.cholesky(A + jitter * eye).transpose(-1, -2)
+    with timing.span("host sync"):
+        L = torch.linalg.cholesky(A + jitter * eye)
+    return L.transpose(-1, -2)
 
 
 def _extrinsic(R_cb, t_cb, like: torch.Tensor):
@@ -307,8 +312,9 @@ def pose_inertial_optimization_last_frame(
     H, _ = normal_eqs(b, inlier)
     eye15 = torch.eye(15, dtype=torch.float64, device=dev)
     H11 = H[0:15, 0:15] + 1e-4 * eye15
-    Hm = H[15:30, 15:30] - H[15:30, 0:15] @ torch.linalg.solve(
-        H11, H[0:15, 15:30])
+    with timing.span("host sync"):      # the solve's error check
+        H11_inv_H12 = torch.linalg.solve(H11, H[0:15, 15:30])
+    Hm = H[15:30, 15:30] - H[15:30, 0:15] @ H11_inv_H12
     Hm = (0.5 * (Hm + Hm.T)).to(torch.float32)
     R2 = so3.normalize(b[5])
     p2, v2, bg2, ba2 = b[6], b[7], b[8], b[9]

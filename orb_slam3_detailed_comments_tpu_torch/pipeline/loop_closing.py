@@ -752,11 +752,12 @@ def verify_sim3_pair(mk: MapStore, k: int, mc: MapStore, c: int, cam,
     d = _padded_pairs(xk, xc, mk.kf_feat_xyn[k][fk], mc.kf_feat_xyn[c][fc],
                       dev)
     gen = torch.Generator().manual_seed(int(k) * 977 + int(c))
-    sets = sample_sets(d["valid"].cpu(), 128, 3, gen)
+    sets = sample_sets(device_mod.to_device(d["valid"], "cpu"), 128, 3, gen)
     s3 = sim3_solver.solve_sim3_ransac(
         d["x1"], d["x2"], d["valid"], d["xn1"], d["xn2"],
         focal=float(cam.fx), min_inliers=cfg.min_sim3_inliers,
-        fix_scale=cfg.fix_scale, sample_idx=sets.to(dev))
+        fix_scale=cfg.fix_scale,
+        sample_idx=device_mod.to_device(sets, dev))
     # the refinement runs on the RANSAC result either way, so one fetch
     # brings both the RANSAC verdict and the refined Sim3
     ref = sim3_solver.refine_sim3_gn(
@@ -819,8 +820,8 @@ def _host(parts) -> list:
     """numpy arrays of tensors (one packed fetch) or of host arrays."""
     if all(isinstance(p, torch.Tensor) for p in parts):
         return device_mod.fetch_packed(parts)
-    return [p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
-            for p in parts]
+    return [device_mod.to_device(p, "cpu").numpy()
+            if isinstance(p, torch.Tensor) else np.asarray(p) for p in parts]
 
 
 def apply_vi_gba_with_propagation(m: MapStore, meta: dict, res):

@@ -279,11 +279,13 @@ class System:
         track_monocular_iter: items yields (img_l, img_r, ts) or (img_l,
         img_r, ts, imu); the next pair's extraction and matching is queued
         on the device before the current frame's tracking walks its host
-        stages. Bit-identical to track_stereo."""
+        stages. Bit-identical to track_stereo. Each pair's extraction runs
+        under its own frame id (``utils/timing``)."""
         tk = self.tracker
         prev = None
         for item in items:
             imu = item[3] if len(item) > 3 else None
+            timing.frame(tk.frame_id + (prev is not None))
             cur = (*tk.prepare_stereo(item[0], item[1]), float(item[2]), imu)
             if prev is not None:
                 yield self._post_track(tk.track_prepared_stereo(*prev),
@@ -297,14 +299,18 @@ class System:
         the device before the current frame's tracking walks its host
         stages. items yields (img, ts) or (img, ts, imu); yields the same
         poses as track_monocular, bit for bit (extraction is pure, so the
-        order of dispatch changes no result)."""
+        order of dispatch changes no result). Each frame's extraction runs
+        under its own frame id (``utils/timing``)."""
         tk = self.tracker
         prev = None
         for item in items:
             img, ts = item[0], float(item[1])
             imu = item[2] if len(item) > 2 else None
-            cur = (kernels.prepare_frame(tk.image(img), self.cam, tk.orb_cfg,
-                                         tk.cfg.frontend), ts, None, imu)
+            timing.frame(tk.frame_id + (prev is not None))
+            with timing.span("ORB extraction"):
+                prep = kernels.prepare_frame(tk.image(img), self.cam,
+                                             tk.orb_cfg, tk.cfg.frontend)
+            cur = (prep, ts, None, imu)
             if prev is not None:
                 yield self._post_track(tk._track_frame(*prev), prev[1])
             prev = cur
@@ -369,7 +375,8 @@ class System:
     def _process_keyframe(self, k: int, ts: float = 0.0):
         """One LocalMapping + LoopClosing iteration for keyframe k (the
         bodies of the reference's mapping and loop threads), then the IMU
-        schedule."""
+        schedule, under the keyframe's frame id (``utils/timing``)."""
+        timing.frame(int(self.map.kf_frame_id[k]))
         if self.map.kf_valid[k] and self.map.n_kf > 2:
             self.local_mapper.process_keyframe(k)
         if self.enable_loop_closing:
@@ -591,9 +598,10 @@ class System:
             X, has_d, R_d, t_d = device_mod.upload_packed(
                 [m.pt_xyz[np.where(has, match_pt, 0)], has,
                  np.asarray(R, np.float32), np.asarray(t, np.float32)], dev)
-            res = pose_opt.pose_optimization(
-                SE3(R_d, t_d), X, prep.xy_ud, inv_s2,
-                has_d & prep.feat.valid, self.cam)
+            with timing.span("pose GN"):
+                res = pose_opt.pose_optimization(
+                    SE3(R_d, t_d), X, prep.xy_ud, inv_s2,
+                    has_d & prep.feat.valid, self.cam)
             n, inl, Ro, to = device_mod.fetch_packed(
                 [res.n_inliers, res.inlier, res.T_cw.R, res.T_cw.t])
             return (int(n), np.where(inl, match_pt, -1).astype(np.int32),

@@ -49,7 +49,8 @@ class KeyFrameDatabase:
         d, v = device_mod.upload_packed(
             [np.ascontiguousarray(desc).view(np.int32),
              np.asarray(feat_valid, bool)], dev)
-        return vocab_mod.transform(self.voc, d, v).cpu().numpy()
+        return device_mod.to_device(vocab_mod.transform(self.voc, d, v),
+                                    "cpu").numpy()
 
     def add(self, kf_id: int, desc, feat_valid):
         self._ensure(len(desc), kf_id)

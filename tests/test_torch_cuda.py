@@ -438,3 +438,95 @@ def test_searches_from_a_worker_thread_on_its_own_stream(dev, rng):
     assert native.launches["hamming_best2_windowed"] == \
         before["hamming_best2_windowed"] + 1
     assert native.launches["hamming_best2"] == before["hamming_best2"] + 1
+
+
+def test_host_sync_spans_are_the_card_s_syncs(dev):
+    """Every synchronizing CUDA call that PyTorch's sync debug mode reports
+    over 26 frames of a stereo sequence (376x240 pairs rendered on the
+    card and handed over as host arrays, as the benchmark's are; the
+    System at its defaults, loop closing on with the bundled vocabulary;
+    keyframe events inline) falls inside a span "host sync", and each
+    such span holds exactly one: the spans count the card's syncs. The
+    first 14 frames, which build the constant tables, the vocabulary's
+    device copy and the triangulation's minors, are not counted."""
+    import collections
+    import contextlib
+    import traceback
+    import warnings
+    from orb_slam3_detailed_comments_tpu_torch.mapping import mapstore
+    from orb_slam3_detailed_comments_tpu_torch.models import cameras
+    from orb_slam3_detailed_comments_tpu_torch.ops import extractor
+    from orb_slam3_detailed_comments_tpu_torch.pipeline import system
+    from orb_slam3_detailed_comments_tpu_torch.utils import (
+        synth_render, timing)
+    cam = cameras.pinhole(fx=229.0, fy=228.5, cx=188.0, cy=120.0, width=376,
+                          height=240)
+    planes = synth_render.default_world(np.random.default_rng(9))
+    R, t = synth_render.orbit_trajectory(40)
+    img = lambda t_cw, i: synth_render.render_image(
+        cam, planes, R[i], t_cw, dev).cpu().numpy()
+    pairs = [(img(t[i], i),
+              img(synth_render.stereo_right_t(R[i], t[i], 0.11), i),
+              0.05 * i) for i in range(40)]
+    slam = system.System(
+        cam, system.STEREO, baseline=0.11,
+        map_cfg=mapstore.MapConfig(max_kf=32, max_pt=4096, n_feat=512),
+        orb_cfg=extractor.OrbConfig(n_features=512), device=dev)
+    it = slam.track_stereo_iter(iter(pairs))
+    for _ in range(14):
+        next(it)
+
+    def site():
+        stack = traceback.extract_stack()[:-2]
+        port = [f for f in stack
+                if "orb_slam3_detailed_comments_tpu_torch" in f.filename]
+        return " <- ".join(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}"
+                           for f in reversed((port or stack)[-4:]))
+
+    open_syncs, stages = [], collections.Counter()
+    outside, not_one, n_syncs = collections.Counter(), collections.Counter(), [0]
+    orig = timing.span
+
+    @contextlib.contextmanager
+    def span(stage):
+        stages[stage] += 1
+        if stage != "host sync":
+            with orig(stage):
+                yield
+            return
+        open_syncs.append([0, site()])
+        try:
+            with orig(stage):
+                yield
+        finally:
+            n, where = open_syncs.pop()
+            if n != 1:
+                not_one[where] += 1
+
+    def record(message, *a, **kw):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        n_syncs[0] += 1
+        if open_syncs:
+            open_syncs[-1][0] += 1
+        else:
+            outside[site()] += 1
+
+    poses = []
+    timing.span = span
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                poses = list(it)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        timing.span = orig
+        it.close()
+    assert len(poses) == 26 and all(p is not None for p in poses)
+    assert stages["KF insertion"] >= 1
+    assert not outside and not not_one, (dict(outside), dict(not_one))
+    assert stages["host sync"] == n_syncs[0] > 0

@@ -214,12 +214,16 @@ def test_to_quat_matches_jax():
                                atol=1e-5)
 
 
-def test_timing_registry():
+def test_timing_registry(monkeypatch):
+    clock = iter([0.0, 0.001, 0.0, 0.002, 10.0, 10.5])
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: next(clock))
     timing.reset()
     with timing.span("MP culling"):
         pass
-    timing.record("MP culling", 0.002)
-    timing.record("local BA", 0.5)
+    with timing.span("MP culling"):
+        pass
+    with timing.span("local BA"):
+        pass
     st = timing.stats()
     assert st["MP culling"][3] == 2 and st["local BA"][0] == 500.0
     assert timing.samples("local BA") == [0.5]
@@ -227,7 +231,8 @@ def test_timing_registry():
     text = timing.print_time_stats()
     assert "local BA" in text and "MP culling" in text
     timing.enable(False)
-    timing.record("local BA", 1.0)
+    with timing.span("local BA"):
+        pass
     timing.enable(True)
     assert len(timing.samples("local BA")) == 1
     timing.reset()
