@@ -38,7 +38,8 @@ ROOT = HERE.parent
 
 class RunFailed(Exception):
     """A run that cannot give a result: no card, a cell that does not set
-    up, traffic that runs dry. Exits non-zero with no result line."""
+    up, traffic that runs dry in set-up or before the window's floor.
+    Exits non-zero with no result line."""
 
 
 def process_start() -> float:
@@ -51,6 +52,15 @@ def process_start() -> float:
         uptime = float(f.read().split()[0])
     age = uptime - start_ticks / os.sysconf("SC_CLK_TCK")
     return time.time() - max(age, 0.0)
+
+
+def host_rss_bytes() -> int:
+    """This process's resident set on the host now (VmRSS, /proc)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
 
 
 def forbidden_modules(modules=None) -> list:
@@ -399,6 +409,9 @@ def execute(spec: dict, seed: int, seconds: float, traced: bool, dev,
                 lost=res["n_lost"], keyframes_setup=res["n_kf_setup"],
                 keyframes_end=res["n_kf_end"], points=int(slam.map.n_points),
                 window_bas=len(cap.ba_calls) - res["ba_first"],
+                window_s=res["window_s"], window_end=res["window_end"],
+                traffic_texture_s=tr.texture_s, traffic_render_s=tr.render_s,
+                host_rss_after_setup_bytes=res["rss_setup"],
                 traced_frames_before_slice=len(res.get("frame_s_before_slice", [])),
                 traced_kf_events=res.get("kf_events"),
                 trajectory_rms_m=ate, trajectory_scale=scale)
@@ -450,7 +463,9 @@ def drive(slam, tr, cap, traffic: dict, seconds: float, traced: bool,
           stereo: bool, cfg: dict, dev) -> dict:
     """Set-up through the System until the traffic's set-up condition
     holds, then the closed-loop window: every frame as soon as the System
-    has returned the last one, for ``seconds`` of the host clock."""
+    has returned the last one, for ``seconds`` of the host clock or until
+    the feed ends, whichever comes first. A window that the feed ends
+    before the traffic's ``window.min_s`` fails."""
     import torch
     from orb_slam3_detailed_comments_tpu_torch.pipeline.tracking import OK
     from . import profiling as P
@@ -474,11 +489,17 @@ def drive(slam, tr, cap, traffic: dict, seconds: float, traced: bool,
                         f"{su['min_keyframes']} keyframes and tracking wanted")
     sync()
     t_setup_end = time.time()
+    rss_setup = host_rss_bytes()
     n_setup = n
+    # the frames the feed holds for the window, and the shortest window
+    # that a feed ending early may give
+    feed_frames = len(tr.frames) - n_setup
+    min_s = float(traffic["window"]["min_s"])
     n_kf0 = int(slam.map.n_kf)
     from orb_slam3_detailed_comments_tpu_torch.utils import timing
     timing.reset()
     pf = traffic["profile"]
+    after = float(pf["after_share"])
     rates = P.int_rates() if traced and dev.type == "cuda" else None
     prof = None
     slice_at = None
@@ -502,9 +523,11 @@ def drive(slam, tr, cap, traffic: dict, seconds: float, traced: bool,
         if traced:
             # the slice starts late in the window: the profiler slows every
             # frame after it starts, also once it has stopped, so the layers
-            # are read from the frames before it
-            if prof is None and slice_out is None \
-                    and t - t0 >= float(pf["after_share"]) * seconds:
+            # are read from the frames before it. It starts at after_share
+            # of the window's clock or of the feed's window frames,
+            # whichever comes first, so inside a window that the feed ends
+            if prof is None and slice_out is None and (
+                    t - t0 >= after * seconds or n_win >= after * feed_frames):
                 sync()
                 cap.windowed.clear()
                 cap.in_slice = True
@@ -524,10 +547,18 @@ def drive(slam, tr, cap, traffic: dict, seconds: float, traced: bool,
                     slice_out = (prof, slice_at, (n_win, t_b))
                     prof = None
         if t - t0 >= seconds:
+            window_end = "seconds"
             break
     else:
-        raise RunFailed(f"the traffic ran dry after {n_win} window frames "
-                        f"in {t_prev - t0:.1f} s")
+        # the feed ended first: the window closes at its last frame
+        window_end = "feed"
+        if n_win == 0 or t_prev - t0 < min_s:
+            raise RunFailed(
+                f"the feed ended after {n_win} window frames in "
+                f"{t_prev - t0:.1f} s, under the window's floor of "
+                f"{min_s:g} s: the traffic measures at most "
+                f"{feed_frames / min_s:.4g} frames/s ({feed_frames} window "
+                f"frames over {min_s:g} s)")
     window_s = t_prev - t0
     cap.window = False
     it.close()
@@ -542,7 +573,8 @@ def drive(slam, tr, cap, traffic: dict, seconds: float, traced: bool,
         slice_out = (prof, slice_at, (n_win, time.perf_counter()))
     sync()
     res = dict(t_setup_end=t_setup_end, n_setup=n_setup, n_frames=n_win,
-               n_lost=lost, window_s=window_s, frame_s=times,
+               n_lost=lost, window_s=window_s, window_end=window_end,
+               rss_setup=rss_setup, frame_s=times,
                n_kf_setup=n_kf0, n_kf_end=int(slam.map.n_kf),
                ba_first=ba_before, poses=poses,
                spans={k: timing.samples(k) for k in timing.stats()},

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ast
 import copy
 import json
+import math
 import shutil
 import time
 from pathlib import Path
@@ -23,6 +24,9 @@ from slam_bench import check, core, profiling
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "slam_bench"
+TRAFFIC = sorted(p.stem for p in (BENCH / "traffic").glob("*.json"))
+# the fastest program whose window a feed has to fill at run_seconds
+FEED_RATE = 40
 
 
 def tiny_spec(cell: str = "euroc_stereo.explore", frames: int = 90) -> dict:
@@ -39,6 +43,7 @@ def tiny_spec(cell: str = "euroc_stereo.explore", frames: int = 90) -> dict:
     tr["frames"] = frames
     tr["path"]["speed_m_per_frame"] = 0.08
     tr["setup"].update(frames=3, min_keyframes=1)
+    tr["window"].update(min_s=0.5)
     tr["profile"].update(after_share=0.5, min_frames=1, max_frames=2,
                          min_kf_events=0)
     tr["check"].update(frames=3, ba_events=1)
@@ -46,14 +51,36 @@ def tiny_spec(cell: str = "euroc_stereo.explore", frames: int = 90) -> dict:
     return spec
 
 
-# a rehearsal's window: long enough to hold bundle adjustments
-WINDOW_S = 6.0
+# a rehearsal's window that the clock closes: ~25 window frames at the
+# CPU's ~0.5 s a frame, so that it holds bundle adjustments also on a host
+# that runs it at half that speed (and the 90-pair feed outlasts it)
+WINDOW_S = 12.0
+# a feed that a rehearsal with a large --seconds runs to its end: enough
+# window frames to hold bundle adjustments on any host
+FEED_FRAMES = 30
 
 
 def run_tiny(spec, seed=4_000_000_123, seconds=1e9, traced=False, **kw):
     torch.set_num_threads(4)
     return core.execute(spec, seed, seconds, traced, torch.device("cpu"),
                         time.time(), **kw)
+
+
+def rehearse(capsys, window_end: str, traced=False):
+    """A tiny run whose window the clock closes (``WINDOW_S``) or the feed
+    (``FEED_FRAMES`` pairs under a large --seconds), with its result line
+    and its diagnostics line."""
+    if window_end == "seconds":
+        out = run_tiny(tiny_spec(), seconds=WINDOW_S, traced=traced)
+    else:
+        out = run_tiny(tiny_spec(frames=FEED_FRAMES), traced=traced)
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("diagnostics ")]
+    diag = json.loads(lines[-1].split(" ", 1)[1])
+    assert diag["window_end"] == window_end
+    if window_end == "feed":
+        assert out["attempted"] == FEED_FRAMES - 3     # tiny_spec's set-up
+    return out, diag
 
 
 # -- parts found by name ----------------------------------------------------
@@ -68,7 +95,7 @@ def test_every_cell_names_files_that_exist():
             assert callable(core.metric_reader(m["name"]))
 
 
-@pytest.mark.parametrize("name", sorted(p.stem for p in (BENCH / "traffic").glob("*.json")))
+@pytest.mark.parametrize("name", TRAFFIC)
 def test_every_traffic_file_builds_its_feed(name):
     """Each mix in the folder: the frames render, and the feed runs the
     path once in order at the mix's rate."""
@@ -87,6 +114,73 @@ def test_every_traffic_file_builds_its_feed(name):
     assert t.fed == [0, 1, 2, 3]
     with pytest.raises(StopIteration):
         next(items)
+
+
+@pytest.mark.parametrize("name", TRAFFIC)
+def test_every_feed_holds_a_full_window_at_40_frames_per_s(name):
+    """After set-up, each mix's feed holds run_seconds of frames for a
+    program at FEED_RATE frames/s, and its window floor lets a window that
+    such a feed ends stand."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    tr = core.load_json(BENCH / "traffic" / f"{name}.json")
+    window_frames = tr["frames"] - tr["setup"]["frames"]
+    assert window_frames >= FEED_RATE * bench["run_seconds"]
+    assert 0 < tr["window"]["min_s"] <= window_frames / FEED_RATE
+
+
+@pytest.mark.parametrize("name", TRAFFIC)
+def test_every_hall_reaches_past_the_path_by_cull_m(name):
+    """The hall runs on for cull_m past the path's last camera, and the
+    image corners of every frame of each rig that renders the mix meet
+    the back wall inside the hall: no frame sees past either end."""
+    from slam_bench import traffic_gen
+    tr = core.load_json(BENCH / "traffic" / f"{name}.json")
+    w = tr["world"]
+    R, t = traffic_gen.sweep_path(int(tr["frames"]), tr["path"])
+    C = -np.einsum("nji,nj->ni", R, t)
+    assert w["x_to_m"] - C[:, 0].max() >= w["cull_m"]
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cells = [c for c in bench["workloads"] if c["traffic"] == name]
+    for cell in cells:
+        cam = core.render_camera(core.load_cell(cell["name"])["config"])
+        W, H = cam["width"], cam["height"]
+        corners = np.array([[(u - cam["cx"]) / cam["fx"],
+                             (v - cam["cy"]) / cam["fy"], 1.0]
+                            for u in (0, W - 1) for v in (0, H - 1)])
+        rays = np.einsum("kj,nji->nki", corners, R)      # R_cw^T r
+        for b in (0.0, cam["baseline_m"]):
+            Cb = C + b * R[:, 0, :]                       # along the rig's x
+            d = (w["wall_depth_m"] - Cb[:, None, 2]) / rays[..., 2]
+            x = Cb[:, None, 0] + d * rays[..., 0]
+            assert w["x_from_m"] < x.min() and x.max() < w["x_to_m"], (cell, b)
+
+
+@pytest.mark.parametrize("name", TRAFFIC)
+def test_planes_no_camera_sees_are_left_out_of_the_render_alone(
+        name, monkeypatch):
+    """Leaving out the planes that may_show rules out changes no pixel, in
+    batches of the feed's size spread along the path from its start to
+    its end, on either camera of the pair; and it rules some out."""
+    from slam_bench import traffic_gen
+    cam = core.render_camera(tiny_spec()["config"])
+    tr = core.load_json(BENCH / "traffic" / f"{name}.json")
+    planes = traffic_gen.hall_world(np.random.default_rng(5), tr["world"])
+    tex = [torch.from_numpy(p.texture).reshape(-1) for p in planes]
+    rays = traffic_gen.camera_rays(cam, "cpu")
+    R, t = traffic_gen.sweep_path(int(tr["frames"]), tr["path"])
+    cull = float(tr["world"]["cull_m"])
+    may_show = traffic_gen.may_show
+    left_out = 0
+    for b0 in np.linspace(0, len(R) - 16, 6).astype(int):
+        for b in (0.0, 0.11):
+            Rb, tb = R[b0:b0 + 16], t[b0:b0 + 16] - np.array([b, 0.0, 0.0])
+            left_out += sum(not may_show(p, Rb, tb, cam) for p in planes)
+            with monkeypatch.context() as m:
+                m.setattr(traffic_gen, "may_show", lambda *a, **k: True)
+                every = traffic_gen.render(planes, tex, rays, Rb, tb, cam, cull)
+            assert np.array_equal(
+                traffic_gen.render(planes, tex, rays, Rb, tb, cam, cull), every)
+    assert left_out > 0
 
 
 def test_the_stereo_config_is_its_source_rectified_as_orb_slam3_does():
@@ -277,23 +371,44 @@ def test_harness_and_reference_import_no_jax():
 
 # -- rehearsals of whole runs on the CPU --------------------------------------
 
-def test_cpu_rehearsal_of_a_stereo_cell_is_correct():
-    out = run_tiny(tiny_spec(), seconds=WINDOW_S)
+@pytest.mark.parametrize("window_end", ["seconds", "feed"])
+def test_cpu_rehearsal_of_a_stereo_cell_is_correct(capsys, window_end):
+    """A window that the clock closes, and one that a feed shorter than
+    --seconds closes at its last frame: both correct, the rate every
+    window frame over the window's whole length."""
+    out, diag = rehearse(capsys, window_end)
     assert out["correct"], out["checks"]
     assert set(out["checks"]) == set(check.LIMITS)
     assert out["checks"]["sample_short"]["value"] == 0
-    assert out["metrics"]["frames_per_s"]["value"] > 0
     assert out["attempted"] >= 1
+    assert out["metrics"]["frames_per_s"]["value"] == \
+        out["attempted"] / diag["window_s"]
 
 
-def test_cpu_rehearsal_of_a_traced_run_reads_the_layers():
-    out = run_tiny(tiny_spec(), traced=True, seconds=WINDOW_S)
-    for name in ("frame_ms_p90", "frontend_ms", "track_ms",
-                 "device_idle_share", "launches_per_frame"):
-        if name != "frame_ms_p90":
-            assert name in out["metrics"], name
+@pytest.mark.parametrize("window_end", ["seconds", "feed"])
+def test_cpu_rehearsal_of_a_traced_run_reads_the_layers(capsys, window_end):
+    """The slice starts inside the window however it ends: in a window
+    that the feed ends, at after_share of the feed's window frames."""
+    out, diag = rehearse(capsys, window_end, traced=True)
+    for name in ("frontend_ms", "track_ms", "device_idle_share",
+                 "launches_per_frame"):
+        assert name in out["metrics"], name
     assert out["device"]["busy_s"] > 0
     assert out["breakdown"]["device_ops"]
+    if window_end == "feed":
+        assert diag["traced_frames_before_slice"] == math.ceil(
+            0.5 * (FEED_FRAMES - 3))
+
+
+def test_a_window_the_feed_ends_under_the_floor_fails():
+    """A feed that ends before the window's floor gives no result, and the
+    message names the most the traffic can measure: its window frames
+    over the floor."""
+    spec = tiny_spec(frames=8)
+    spec["traffic"]["window"]["min_s"] = 3600.0
+    with pytest.raises(core.RunFailed,
+                       match=f"at most {5 / 3600:.4g} frames/s"):
+        run_tiny(spec)
 
 
 def _break(monkeypatch, fault: str):
@@ -375,8 +490,9 @@ def _break(monkeypatch, fault: str):
                                    "pose_all_outliers", "solves_unseen",
                                    "keypoint_altered"])
 def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
+    """In a window that the feed closes (the same frames on any host)."""
     _break(monkeypatch, fault)
-    out = run_tiny(tiny_spec(), seconds=WINDOW_S)
+    out = run_tiny(tiny_spec(frames=FEED_FRAMES))
     assert not out["correct"], out["checks"]
 
 
@@ -384,7 +500,7 @@ def test_a_bundle_adjustment_left_undone_is_not_correct(monkeypatch):
     """Keyframe events run the local BA in the window; one that returns
     its problem's state fails ba_gap_px."""
     _break(monkeypatch, "ba_unchanged")
-    out = run_tiny(tiny_spec(), seconds=WINDOW_S)
+    out = run_tiny(tiny_spec(frames=FEED_FRAMES))
     assert out["checks"]["ba_gap_px"]["value"] is not None
     assert not out["correct"], out["checks"]
 

@@ -19,6 +19,7 @@ arrivals.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -137,11 +138,35 @@ def camera_rays(cam: dict, device) -> torch.Tensor:
     return torch.stack([x, y, torch.ones_like(x)], dim=1)
 
 
+def may_show(pl: Plane, R_cw, t_cw, cam: dict, margin_px: float = 2.0) -> bool:
+    """Whether a camera of the batch (R_cw [B, 3, 3], t_cw [B, 3]) may see
+    the plane's textured quad. False only where, for every camera, the
+    quad's four corners lie in front of it and past one edge of the image
+    by ``margin_px``: a convex quad in front of a camera projects into
+    the hull of its corners, so no pixel's ray then meets it, and leaving
+    the plane out changes no pixel."""
+    th, tw = pl.texture.shape
+    Q = np.array([pl.origin + a * pl.e1 + b * pl.e2
+                  for a in (0, tw - 1) for b in (0, th - 1)])
+    X = np.einsum("nij,kj->nki", R_cw, Q) + t_cw[:, None, :]
+    z = X[..., 2]
+    if (z <= 0.05).any():
+        return True
+    u = X[..., 0] / z * cam["fx"] + cam["cx"]
+    v = X[..., 1] / z * cam["fy"] + cam["cy"]
+    m = margin_px
+    off = ((u < -m).all(1) | (u > cam["width"] - 1 + m).all(1)
+           | (v < -m).all(1) | (v > cam["height"] - 1 + m).all(1))
+    return not off.all()
+
+
 def render(planes: list, tex_dev: list, rays: torch.Tensor, R_cw, t_cw,
            cam: dict, cull_m: float) -> np.ndarray:
     """uint8 frames [B, H, W] (host) of the poses R_cw [B, 3, 3], t_cw
     [B, 3]: each ray's nearest plane hit, the texture read bilinearly,
-    90 where a ray hits nothing, rounded to 8 bits as a camera records."""
+    90 where a ray hits nothing, rounded to 8 bits as a camera records.
+    Planes farther along x than ``cull_m`` from every camera, or that no
+    camera can see (``may_show``), are not cast against."""
     dev = rays.device
     f64 = torch.float64
     H, W = int(cam["height"]), int(cam["width"])
@@ -154,7 +179,8 @@ def render(planes: list, tex_dev: list, rays: torch.Tensor, R_cw, t_cw,
     depth = torch.full((B, H * W), float("inf"), dtype=f64, device=dev)
     xlo, xhi = float(C_np[:, 0].min()) - cull_m, float(C_np[:, 0].max()) + cull_m
     for pl, tx in zip(planes, tex_dev):
-        if pl.x_range[1] < xlo or pl.x_range[0] > xhi:
+        if (pl.x_range[1] < xlo or pl.x_range[0] > xhi
+                or not may_show(pl, R_cw, t_cw, cam)):
             continue
         n = np.cross(pl.e1, pl.e2)
         nn = torch.from_numpy(n / np.linalg.norm(n)).to(dev)
@@ -193,16 +219,20 @@ def render(planes: list, tex_dev: list, rays: torch.Tensor, R_cw, t_cw,
 class Traffic:
     """The frames of one run (``frames``, and ``frames_r`` of a stereo
     rig), fed in path order at ``rate_hz``; ``fed`` records the frame
-    index of every item fed."""
+    index of every item fed. ``texture_s`` and ``render_s``: the host
+    clock of the world's textures (drawn and uploaded) and of the
+    frames' rendering."""
 
     def __init__(self, spec: dict, cfg: dict, seed: int, device,
                  batch: int = 16):
         self.spec = spec
         self.device = torch.device(device)
+        t0 = time.perf_counter()
         rng = np.random.default_rng(int(seed))
         self.planes = hall_world(rng, spec["world"])
         tex = [torch.from_numpy(np.ascontiguousarray(p.texture)).to(
             device).reshape(-1) for p in self.planes]
+        t1 = time.perf_counter()
         n = int(spec["frames"])
         self.R_cw, self.t_cw = sweep_path(n, spec["path"])
         cam = cfg["camera"]
@@ -220,6 +250,8 @@ class Traffic:
                 right.append(render(self.planes, tex, rays, R, t_r, cam, cull))
         self.frames = np.concatenate(left)
         self.frames_r = np.concatenate(right) if stereo else None
+        self.texture_s = t1 - t0
+        self.render_s = time.perf_counter() - t1
         self.rate_hz = float(spec["rate_hz"])
         self.fed: list = []     # frame index of every item fed, in order
 
