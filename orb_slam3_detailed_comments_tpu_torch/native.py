@@ -26,12 +26,13 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libslamkernels.so"
-SOURCES = ("topk.cu", "patches.cu", "hamming.cu", "frontend.cu")
+SOURCES = ("topk.cu", "patches.cu", "hamming.cu", "frontend.cu",
+           "pose_gn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = Counts("cell_topk", "gather_patches", "hamming_best2",
-                  "hamming_best2_windowed", "dense_frontend")
+                  "hamming_best2_windowed", "dense_frontend", "pose_gn")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "slam_dense_frontend_levels": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "slam_frontend_umax": [_P],
     "slam_best2_lanes": [_P],
+    "slam_pose_gn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P,
+                     _P, _P, _P],
 }
 
 _lib = None
@@ -120,6 +123,13 @@ def int_array(values: tuple):
     """A C int array of the values, made once for each tuple: the level
     tables that the multi-level entries copy into their by-value tables."""
     return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=64)
+def float_array(values: tuple):
+    """A C float array of the values, made once for each tuple: a camera's
+    parameters for the pose solve."""
+    return (ctypes.c_float * len(values))(*values)
 
 
 def stream_ptr(tensor) -> int:

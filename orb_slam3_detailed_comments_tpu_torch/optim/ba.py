@@ -31,10 +31,17 @@ Where this differs from the JAX code, with the same results:
 * the COO tier's scatter-adds sum in float64 and round once to float32:
   ``index_add_`` on the card adds in an arbitrary order, and in float64
   that order no longer shows in the float32 sums, so the card repeats
-  itself and stays within rounding of the CPU.
+  itself and stays within rounding of the CPU;
+* the table tier evaluates each observation in float32 and sums the
+  robust cost and the normal equations in float64, reduces and solves the
+  Schur system in float64 and rounds the step once to float32. The LM's
+  accept and stop tests compare costs whose change is ~1e-6 of their size,
+  and the chi2 gates between and after the phases turn on the solution:
+  in float32 the solve parts now and then from the float64 one there, and
+  a weakly held point then moves by pixels.
 
-The per-camera sums are float32 matrix products against the one-hot: keep
-TF32 off on the card (``device.resolve`` does).
+The per-camera sums are matrix products against the one-hot: keep TF32
+off on the card (``device.resolve`` does).
 """
 from __future__ import annotations
 
@@ -192,8 +199,9 @@ class ObsTable(NamedTuple):
 
     tab: [P, d] obs id or -1; tvalid: [P, d]; cam_t: [P, d] camera per slot;
     uv_t: [P, d, 2]; w_t: [P, d] (0 on padding / invalid points);
-    onehot: [P, d, C] camera one-hot (0 rows on padding); inval: [P, d]
-    float 1.0 on padding; pos: [O] flat table slot per obs (P*d = absent).
+    onehot: [P, d, C] float64 camera one-hot (0 rows on padding); inval:
+    [P, d] float 1.0 on padding; pos: [O] flat table slot per obs (P*d =
+    absent).
     """
     tab: torch.Tensor
     tvalid: torch.Tensor
@@ -236,8 +244,8 @@ def build_obs_table(obs_pt, obs_cam, obs_uv, obs_w, obs_valid, point_valid,
     uv_t = obs_uv[idx]
     w_t = torch.where(tvalid & point_valid[:, None], obs_w[idx],
                       torch.zeros((), dtype=obs_w.dtype, device=dev))
-    onehot = (torch.nn.functional.one_hot(cam_t.long(), C).to(torch.float32)
-              * tvalid[..., None].to(torch.float32))
+    onehot = (torch.nn.functional.one_hot(cam_t.long(), C).to(torch.float64)
+              * tvalid[..., None].to(torch.float64))
     inval = (~tvalid).to(torch.float32)
     return ObsTable(tab, tvalid, cam_t, uv_t, w_t, onehot, inval,
                     pos.to(torch.int32))
@@ -283,13 +291,15 @@ def _robust_cost(TL, kf_R, kf_t, points, w_t, cam, delta2: float):
     rho = torch.where(chi2 <= delta2, chi2,
                       2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0))
                       - delta2)
-    return torch.sum(torch.where(ok, rho, torch.zeros_like(rho)))
+    return torch.sum(torch.where(ok, rho, torch.zeros_like(rho)),
+                     dtype=torch.float64)
 
 
 def assemble_normal_equations(TL: ObsTable, kf_R, kf_t, points, w_t, cam,
                               delta2: float):
     """(U [C,6,6], b_c [C,6], V [P,3,3], b_p [P,3], Wd [P,C,6,3]) of the
-    Huber-weighted Gauss-Newton system at the given state."""
+    Huber-weighted Gauss-Newton system at the given state, in float64 from
+    the observations' float32 residuals, Jacobians and weights."""
     P, d = TL.tab.shape
     C = kf_R.shape[0]
     R_e, t_e = _entry_poses(TL, kf_R, kf_t)
@@ -297,6 +307,7 @@ def assemble_normal_equations(TL: ObsTable, kf_R, kf_t, points, w_t, cam,
     r, Jc, Jp, depth_ok = reproj.residual_full(SE3(R_e, t_e), X, TL.uv_t, cam)
     chi2 = torch.sum(r * r, dim=-1) * w_t
     w = w_t * reproj.huber_weight(chi2, delta2) * depth_ok
+    r, Jc, Jp, w = (x.to(torch.float64) for x in (r, Jc, Jp, w))
 
     oh2 = TL.onehot.reshape(P * d, C)
     JcW = Jc * w[..., None, None]                              # [P, d, 2, 6]
@@ -323,13 +334,13 @@ def _ba_solve_tables(prob: BAProblem, cam: cameras.CameraParams, iters: int,
     def run(kf_R, kf_t, points, w_t, n):
         cost = _robust_cost(TL, kf_R, kf_t, points, w_t, cam, delta2)
         # filled on the device: a tensor from a Python number is an upload
-        lam = torch.full((), lm_lambda0, dtype=torch.float32, device=dev)
+        lam = torch.full((), lm_lambda0, dtype=torch.float64, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(n):
             U, b_c, V, b_p, Wd = assemble_normal_equations(
                 TL, kf_R, kf_t, points, w_t, cam, delta2)
-            dc, dp = _schur_lm_solve(U, b_c, V, b_p, Wd, lam,
-                                     prob.fixed_cam, prob.point_valid)
+            dc, dp = (x.to(points.dtype) for x in _schur_lm_solve(
+                U, b_c, V, b_p, Wd, lam, prob.fixed_cam, prob.point_valid))
             T_new = se3.exp(dc).compose(SE3(kf_R, kf_t))
             pts_new = points + dp
             new_cost = _robust_cost(TL, T_new.R, T_new.t, pts_new, w_t, cam,
@@ -368,7 +379,7 @@ def _ba_solve_tables(prob: BAProblem, cam: cameras.CameraParams, iters: int,
     ok_flat = torch.cat([ok_t.reshape(P * d),
                          torch.ones(1, dtype=torch.bool, device=dev)])
     inlier = ok_flat[TL.pos.long()] & prob.obs_valid
-    return BAResult(kf_R, kf_t, points, inlier, cost)
+    return BAResult(kf_R, kf_t, points, inlier, cost.to(points.dtype))
 
 
 def _coo_residuals(prob: BAProblem, cam, kf_R, kf_t, points):

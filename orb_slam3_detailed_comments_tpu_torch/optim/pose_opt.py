@@ -12,6 +12,14 @@ the device freezes the pose once a step converged, which gives exactly the
 JAX result (after convergence the pose is frozen, not advanced) with no
 host sync inside the optimizer.
 
+``pose_optimization`` runs that plain twin (``pose_optimization_plain``)
+on a CPU tensor. On a CUDA tensor it launches ``csrc/pose_gn.cu`` once: a
+thread block runs the whole solve, the same iterations, gates and damping,
+with the normal equations summed and solved in float64 (the twin sums and
+solves in float32), and leaves a round once its step converged. Every
+output is a fresh tensor and no input is written. ``native.launches
+["pose_gn"]`` counts the launches.
+
 The visual-inertial optimisers follow (``pose_opt.py:79-377`` of the JAX
 package): ``pose_inertial_optimization`` (the frame's 9-dof nav state
 against its matches and one preintegrated edge to a fixed anchor),
@@ -34,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import native
 from ..imu import factors
 from ..lie import SE3, se3, so3
 from ..models import cameras
@@ -52,7 +61,67 @@ def pose_optimization(T_cw0: SE3, X_w: torch.Tensor, uv: torch.Tensor,
                       cam: cameras.CameraParams, iters: int = 10,
                       rounds: int = 4) -> PoseOptResult:
     """X_w [M, 3] world points, uv [M, 2] observations, inv_sigma2 [M]
-    per-level information weights, valid [M] observation mask."""
+    per-level information weights, valid [M] observation mask. The plain
+    twin on the CPU, one kernel launch on the card."""
+    if X_w.device.type == "cpu":
+        return pose_optimization_plain(T_cw0, X_w, uv, inv_sigma2, valid,
+                                       cam, iters, rounds)
+    R, t, inlier, n = _pose_gn(T_cw0.R, T_cw0.t, X_w, uv, inv_sigma2, valid,
+                               cam, iters, rounds)
+    return PoseOptResult(SE3(R, t), inlier, n)
+
+
+def _pose_gn(R0, t0, X_w, uv, inv_sigma2, valid, cam: cameras.CameraParams,
+             iters: int, rounds: int):
+    """(R, t, inlier, n_inliers) of one ``csrc/pose_gn.cu`` launch: a solve
+    for each index of the inputs' leading batch (none, or F)."""
+    dev = X_w.device
+    if dev.type != "cuda":
+        raise ValueError(f"pose_optimization: unsupported device {dev}")
+    lead = tuple(X_w.shape[:-2])
+    nb = len(lead)
+    for x, name, dtype, nd in (
+            (R0, "T_cw0.R", torch.float32, nb + 2),
+            (t0, "T_cw0.t", torch.float32, nb + 1),
+            (X_w, "X_w", torch.float32, nb + 2),
+            (uv, "uv", torch.float32, nb + 2),
+            (inv_sigma2, "inv_sigma2", torch.float32, nb + 1),
+            (valid, "valid", torch.bool, nb + 1)):
+        native.require(x, name, dtype, nd, dev)
+    M = X_w.shape[-2]
+    if (nb > 1 or R0.shape != (*lead, 3, 3) or t0.shape != (*lead, 3)
+            or X_w.shape != (*lead, M, 3) or uv.shape != (*lead, M, 2)
+            or inv_sigma2.shape != (*lead, M) or valid.shape != (*lead, M)):
+        raise ValueError("pose_optimization: expected R [.., 3, 3], "
+                         "t [.., 3], X_w [.., M, 3], uv [.., M, 2], "
+                         "inv_sigma2 and valid [.., M] with one leading "
+                         "batch at most")
+    if cam.kind not in (cameras.PINHOLE, cameras.FISHEYE_KB8):
+        raise ValueError(f"unknown camera kind {cam.kind}")
+    R = torch.empty((*lead, 3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    inlier = torch.empty((*lead, M), dtype=torch.bool, device=dev)
+    n = torch.empty(lead, dtype=torch.int64, device=dev)
+    F = lead[0] if lead else 1
+    if F == 0:
+        return R, t, inlier, n
+    rc = native.lib().slam_pose_gn(
+        R0.data_ptr(), t0.data_ptr(), X_w.data_ptr(), uv.data_ptr(),
+        inv_sigma2.data_ptr(), valid.data_ptr(), F, M, cam.kind,
+        native.float_array((cam.fx, cam.fy, cam.cx, cam.cy, *cam.dist)),
+        iters, rounds, R.data_ptr(), t.data_ptr(), inlier.data_ptr(),
+        n.data_ptr(), native.stream_ptr(X_w))
+    native.check(rc, "pose_gn")
+    native.launches.bump("pose_gn")
+    return R, t, inlier, n
+
+
+def pose_optimization_plain(T_cw0: SE3, X_w: torch.Tensor, uv: torch.Tensor,
+                            inv_sigma2: torch.Tensor, valid: torch.Tensor,
+                            cam: cameras.CameraParams, iters: int = 10,
+                            rounds: int = 4) -> PoseOptResult:
+    """The plain twin of ``csrc/pose_gn.cu``, on any device: the CPU's
+    path, and the reference that the tests hold the kernel to."""
     delta2 = reproj.CHI2_MONO
     tol = 1e-8   # on ||dx||^2, i.e. ||dx|| ~ 1e-4
     dev = X_w.device
@@ -87,11 +156,18 @@ def pose_optimization_batch(T_cw0: SE3, X_w: torch.Tensor, uv: torch.Tensor,
                             cam: cameras.CameraParams, iters: int = 10,
                             rounds: int = 4) -> PoseOptResult:
     """``pose_optimization`` over a leading batch of F frames, each frame
-    its own solve (``torch.func.vmap``: every frame's done flag is its
-    own). T_cw0: R [F, 3, 3], t [F, 3]; X_w [F, M, 3], uv [F, M, 2],
-    inv_sigma2 [F, M], valid [F, M]. The result has the leading F."""
+    its own solve. T_cw0: R [F, 3, 3], t [F, 3]; X_w [F, M, 3], uv [F, M,
+    2], inv_sigma2 [F, M], valid [F, M]. The result has the leading F. On
+    the card one launch of F blocks; on the CPU the twin under
+    ``torch.func.vmap`` (every frame's done flag is its own)."""
+    if X_w.device.type != "cpu":
+        R, t, inlier, n = _pose_gn(T_cw0.R, T_cw0.t, X_w, uv, inv_sigma2,
+                                   valid, cam, iters, rounds)
+        return PoseOptResult(SE3(R, t), inlier, n)
+
     def one(R, t, X, u, w, v):
-        res = pose_optimization(SE3(R, t), X, u, w, v, cam, iters, rounds)
+        res = pose_optimization_plain(SE3(R, t), X, u, w, v, cam, iters,
+                                      rounds)
         return res.T_cw.R, res.T_cw.t, res.inlier, res.n_inliers
 
     R, t, inlier, n = torch.func.vmap(one)(T_cw0.R, T_cw0.t, X_w, uv,

@@ -16,6 +16,10 @@ for the best-2 searches also from 1 x 1 to 64 x 5000 with ties planted
 across and within the kernel's lanes (``chip_smoke.tie_case``).
 ``dense_frontend``: score and blur exactly equal, each moment map within
 5.0 absolute (moments of order 1e5 summed in another order).
+``pose_gn`` against the plain twin run on the card: pose within 1e-4
+(rotation entries and translation in metres, as tests/test_torch_pose_opt.py
+holds the twin to the JAX package; the kernel sums and solves the normal
+equations in float64, the twin in float32), inlier masks and counts equal.
 """
 import numpy as np
 import pytest
@@ -23,8 +27,11 @@ import torch
 
 import chip_smoke
 from orb_slam3_detailed_comments_tpu_torch import native
+from orb_slam3_detailed_comments_tpu_torch.lie import SE3
+from orb_slam3_detailed_comments_tpu_torch.models import cameras
 from orb_slam3_detailed_comments_tpu_torch.ops import (
     frontend, hamming, patches, pyramid, topk)
+from orb_slam3_detailed_comments_tpu_torch.optim import pose_opt
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -530,3 +537,157 @@ def test_host_sync_spans_are_the_card_s_syncs(dev):
     assert stages["KF insertion"] >= 1
     assert not outside and not not_one, (dict(outside), dict(not_one))
     assert stages["host sync"] == n_syncs[0] > 0
+
+
+POSE_CAMS = dict(
+    radtan=cameras.pinhole(458.654, 457.296, 367.215, 248.375, 752, 480,
+                           k1=-0.28340811, k2=0.07395907, p1=0.00019359,
+                           p2=1.76187114e-05),
+    kb8=cameras.fisheye_kb8(**chip_smoke.KB8_KW))
+
+
+def _pose_args(rng, cam, M, dev, F=None):
+    """pose_optimization's arguments on dev: one seeded problem, or a batch
+    of F."""
+    cases = [chip_smoke.pose_problem(rng, cam, M)[:6]
+             for _ in range(F or 1)]
+    R0, t0, X, uv, w, valid = (
+        torch.from_numpy(np.stack(a) if F else a[0]).to(dev)
+        for a in zip(*cases))
+    return SE3(R0, t0), X, uv, w, valid
+
+
+def _same_pose(got, ref):
+    torch.cuda.synchronize()
+    for a, b in ((got.T_cw.R, ref.T_cw.R), (got.T_cw.t, ref.T_cw.t)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4)
+    assert torch.equal(got.inlier.cpu(), ref.inlier.cpu())
+    assert torch.equal(got.n_inliers.cpu(), ref.n_inliers.cpu())
+    assert got.n_inliers.dtype == ref.n_inliers.dtype
+
+
+@pytest.mark.parametrize("kind", ["radtan", "kb8"])
+@pytest.mark.parametrize("M", [1280, 37, 1281, 12000])
+def test_pose_gn_kernel_equals_twin(dev, rng, kind, M):
+    """The main path's 1,280 observations, a count below a warp's multiple,
+    one past the block's multiple, and one whose observations do not fit
+    the block's shared memory (read from device memory on every pass)."""
+    cam = POSE_CAMS[kind]
+    T0, X, uv, w, valid = _pose_args(rng, cam, M, dev)
+    n0 = native.launches["pose_gn"]
+    got = pose_opt.pose_optimization(T0, X, uv, w, valid, cam)
+    assert native.launches["pose_gn"] == n0 + 1
+    ref = pose_opt.pose_optimization_plain(T0, X, uv, w, valid, cam)
+    _same_pose(got, ref)
+    assert 0.6 * M < int(got.n_inliers) < M
+
+
+def _edge_case(rng, cam, name, dev):
+    T0, X, uv, w, valid = _pose_args(rng, cam, 300, dev)
+    X, valid = X.clone(), valid.clone()
+    R0, t0 = T0.R, T0.t
+    # camera-frame points of the start pose, mapped back to the world
+    world = lambda pc: (pc - t0) @ R0
+    if name == "no_valid":
+        valid[:] = False
+    elif name == "depth_gates":
+        # |z| < 1e-6 (projected through the clamp), behind the camera and
+        # in front of it nearer than 0.05, all valid
+        pc = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 5e-7],
+                           [0.3, -0.2, -2.0], [0.01, 0.02, 0.03]], device=dev)
+        X[:4] = world(pc)
+        valid[:4] = True
+    elif name == "non_finite_step":
+        X[7, 1] = float("nan")
+        valid[7] = True
+    elif name == "zero_weights":
+        w = w.clone()
+        w[::3] = 0.0
+    return T0, X, uv, w, valid
+
+
+@pytest.mark.parametrize("kind", ["radtan", "kb8"])
+@pytest.mark.parametrize("name", ["no_valid", "depth_gates",
+                                  "non_finite_step", "zero_weights"])
+def test_pose_gn_kernel_equals_twin_on_edge_cases(dev, rng, kind, name):
+    cam = POSE_CAMS[kind]
+    args = _edge_case(rng, cam, name, dev)
+    got = pose_opt.pose_optimization(*args, cam)
+    ref = pose_opt.pose_optimization_plain(*args, cam)
+    torch.cuda.synchronize()
+    if name == "non_finite_step":
+        # the step is applied before the done test: NaN on both sides, and
+        # no observation left an inlier
+        assert torch.isnan(got.T_cw.t.cpu()).all()
+        assert torch.isnan(ref.T_cw.t.cpu()).all()
+        assert int(got.n_inliers) == int(ref.n_inliers) == 0
+        assert torch.equal(got.inlier.cpu(), ref.inlier.cpu())
+        return
+    _same_pose(got, ref)
+    if name == "no_valid":
+        # nothing to solve: the start pose, normalised, and no inlier
+        np.testing.assert_allclose(got.T_cw.t.cpu().numpy(),
+                                   args[0].t.cpu().numpy(), atol=1e-6)
+        assert int(got.n_inliers) == 0
+    if name == "depth_gates":
+        assert not got.inlier[:4].any()
+
+
+@pytest.mark.parametrize("kind", ["radtan", "kb8"])
+def test_pose_gn_batch_equals_twin(dev, rng, kind):
+    """pose_optimization_batch: F = 5 solves in one launch of 5 blocks,
+    each against the twin's own solve."""
+    cam = POSE_CAMS[kind]
+    T0, X, uv, w, valid = _pose_args(rng, cam, 700, dev, F=5)
+    n0 = native.launches["pose_gn"]
+    got = pose_opt.pose_optimization_batch(T0, X, uv, w, valid, cam)
+    assert native.launches["pose_gn"] == n0 + 1
+    assert got.T_cw.R.shape == (5, 3, 3) and got.n_inliers.shape == (5,)
+    for f in range(5):
+        ref = pose_opt.pose_optimization_plain(
+            SE3(T0.R[f], T0.t[f]), X[f], uv[f], w[f], valid[f], cam)
+        one = pose_opt.PoseOptResult(SE3(got.T_cw.R[f], got.T_cw.t[f]),
+                                     got.inlier[f], got.n_inliers[f])
+        _same_pose(one, ref)
+
+
+def test_pose_gn_outputs_are_fresh_and_inputs_untouched(dev, rng):
+    """Callers keep each solve's inputs and outputs (the map its pose, the
+    benchmark's check every solve it captured): every output a new tensor,
+    no input written, and the same inputs give the same bits."""
+    cam = POSE_CAMS["radtan"]
+    T0, X, uv, w, valid = _pose_args(rng, cam, 1280, dev)
+    inputs = (T0.R, T0.t, X, uv, w, valid)
+    before = [a.clone() for a in inputs]
+    first = pose_opt.pose_optimization(T0, X, uv, w, valid, cam)
+    kept = [a.clone() for a in (first.T_cw.R, first.T_cw.t, first.inlier,
+                                first.n_inliers)]
+    second = pose_opt.pose_optimization(T0, X, uv, w, valid, cam)
+    torch.cuda.synchronize()
+    outs = [first.T_cw.R, first.T_cw.t, first.inlier, first.n_inliers,
+            second.T_cw.R, second.T_cw.t, second.inlier, second.n_inliers]
+    ptrs = {o.untyped_storage().data_ptr() for o in outs}
+    assert len(ptrs) == len(outs)
+    assert not ptrs & {a.untyped_storage().data_ptr() for a in inputs}
+    for a, b in zip(kept, outs[:4]):
+        assert torch.equal(a, b)            # the first call's, unchanged
+    for a, b in zip(outs[:4], outs[4:]):
+        assert torch.equal(a, b)            # and bit for bit repeated
+    for a, b in zip(before, inputs):
+        assert torch.equal(a, b)
+
+
+def test_pose_gn_rejects_what_the_kernel_does_not_take(dev, rng):
+    cam = POSE_CAMS["radtan"]
+    T0, X, uv, w, valid = _pose_args(rng, cam, 64, dev)
+    with pytest.raises(TypeError):
+        pose_opt.pose_optimization(T0, X.double(), uv, w, valid, cam)
+    with pytest.raises(ValueError):
+        pose_opt.pose_optimization(T0, X.t().contiguous().t(), uv, w, valid,
+                                   cam)
+    with pytest.raises(ValueError):
+        pose_opt.pose_optimization(T0, X, uv[:-1], w, valid, cam)
+    with pytest.raises(ValueError):
+        pose_opt.pose_optimization(T0, X, uv, w, valid,
+                                   cam._replace(kind=7))

@@ -80,7 +80,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert native.launches == {k: 0 for k in native.launches}
     assert set(native.launches) == {"cell_topk", "gather_patches",
                                     "hamming_best2", "hamming_best2_windowed",
-                                    "dense_frontend"}
+                                    "dense_frontend", "pose_gn"}
 
 
 def test_every_kernel_source_is_registered():

@@ -10,9 +10,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 from orb_slam3_detailed_comments_tpu.lie import SE3 as JSE3
 from orb_slam3_detailed_comments_tpu.models import cameras as jcam
 from orb_slam3_detailed_comments_tpu.optim import pose_opt as jpo
+from orb_slam3_detailed_comments_tpu_torch import native
 from orb_slam3_detailed_comments_tpu_torch.lie import SE3, so3
 from orb_slam3_detailed_comments_tpu_torch.models import cameras
 from orb_slam3_detailed_comments_tpu_torch.optim import pose_opt, reproj
@@ -71,3 +73,53 @@ def test_huber_weight():
     w = reproj.huber_weight(chi2, reproj.CHI2_MONO).numpy()
     np.testing.assert_allclose(w, [1.0, 1.0, np.sqrt(5.991 / 6.0),
                                    np.sqrt(5.991 / 100.0)], rtol=1e-6)
+
+
+def test_cpu_dispatch_takes_the_twin():
+    """On the CPU pose_optimization is the plain twin, bit for bit, and
+    launches nothing."""
+    native.reset_launches()
+    cam, R0, t0, Xw, uv, w, valid, _, _ = _problem(4)
+    f = torch.from_numpy
+    args = (SE3(f(R0), f(t0)), f(Xw), f(uv), f(w), f(valid), cam)
+    got = pose_opt.pose_optimization(*args)
+    ref = pose_opt.pose_optimization_plain(*args)
+    for a, b in zip((got.T_cw.R, got.T_cw.t, got.inlier, got.n_inliers),
+                    (ref.T_cw.R, ref.T_cw.t, ref.inlier, ref.n_inliers)):
+        assert torch.equal(a, b)
+    assert native.launches["pose_gn"] == 0
+
+
+@pytest.mark.parametrize("kind", ["radtan", "kb8"])
+def test_batch_on_cpu_equals_single_solves(kind):
+    """pose_optimization_batch on the CPU (the twin under vmap) gives each
+    frame's own solve."""
+    cam = (cameras.pinhole(**KW) if kind == "radtan"
+           else cameras.fisheye_kb8(**chip_smoke.KB8_KW))
+    rng = np.random.default_rng(11)
+    cases = [chip_smoke.pose_problem(rng, cam, 150)[:6] for _ in range(3)]
+    R0, t0, X, uv, w, valid = (torch.from_numpy(np.stack(a))
+                               for a in zip(*cases))
+    got = pose_opt.pose_optimization_batch(SE3(R0, t0), X, uv, w, valid, cam)
+    for f in range(3):
+        one = pose_opt.pose_optimization(SE3(R0[f], t0[f]), X[f], uv[f],
+                                         w[f], valid[f], cam)
+        np.testing.assert_allclose(got.T_cw.R[f].numpy(),
+                                   one.T_cw.R.numpy(), atol=1e-6)
+        np.testing.assert_allclose(got.T_cw.t[f].numpy(),
+                                   one.T_cw.t.numpy(), atol=1e-6)
+        assert torch.equal(got.inlier[f], one.inlier)
+        assert int(got.n_inliers[f]) == int(one.n_inliers)
+
+
+def test_pose_gn_signature_matches_its_source():
+    """The ctypes argument list of slam_pose_gn against the extern "C"
+    declaration in csrc/pose_gn.cu, read as text: one entry a parameter, a
+    pointer for each pointer and an int for each int."""
+    text = (native.CSRC / "pose_gn.cu").read_text()
+    decl = text[text.index('extern "C" int slam_pose_gn('):]
+    params = [p.strip() for p in
+              decl[decl.index("(") + 1:decl.index(")")].split(",")]
+    want = [native._P if "*" in p else native._I for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params)
+    assert native._SIGNATURES["slam_pose_gn"] == want
